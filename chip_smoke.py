@@ -2,7 +2,8 @@
 """Chip smoke for the PyTorch/CUDA port (ragfin_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py            # the full check, as a release gate
-    python3 chip_smoke.py --kernels  # phases 1 and 2 only (build, kernel checks)
+    python3 chip_smoke.py --kernels  # phases 1, 2, 4 and 6 only (build, kernels alone)
+    python3 chip_smoke.py --graph    # phases 1, 4 and 5 only (build, first-k, graph store)
 
 Phases (any failure exits nonzero, and no phase carries on past one):
 
@@ -29,6 +30,33 @@ Phases (any failure exits nonzero, and no phase carries on past one):
    against the same searches with method="dense". Then an int8 index over
    the same embeddings answers one request set through the int8 kernel.
 
+   Hybrid, on the same engine: its graph store is built from the vector
+   index by rule-based extraction (about 7 facts a filing, so the fact table
+   is past the 2^18 rows from which match() takes the first-k kernel), then
+   questions go through graph_builder.query, hybrid.graph_search and
+   hybrid.hybrid_query with the fused top-k and first-k counters at 0 just
+   before. Each graph search equals the same search with the first-k route
+   forced to its plain version; fused chunks are vector hits first, then
+   graph-only chunks, no repeats. IVF engine: Settings(index_type="ivf") over
+   the same filings (64 cells, nprobe 32) answers questions through the
+   pruned kernel; at nprobe = n_cells its hits equal the flat engine's, and
+   at nprobe 32 the kernel is held against its plain version on the engine's
+   own cells and probe table.
+4. First-k alone: hit [10,000,000] int8 at hit rates 1e-3, 1.0 and 0 and
+   with three hits in the last rows, k = 30, ids and count equal to the
+   plain version; timed beside torch.nonzero(hit)[:k].
+5. Graph store at scale: 10,000,000 facts through add_facts_bulk; match,
+   aggregate and expand(hops=2) against a numpy oracle over the packed host
+   columns; match must launch the first-k kernel.
+6. IVF alone: 1,000,000 unit vectors clustered on the card by build_ivf
+   (cell 2048, 489 cells, the default 4 Lloyd iterations), Q in {1, 8, 64},
+   block_q 8, k 64,
+   nprobe 32: the pruned kernel against its plain version for f32 "exact",
+   bf16 "fast" (within 1e-5, ids equal outside tie bands) and int8
+   (bitwise), and at nprobe = n_cells against the exact fused tier; timed
+   beside a gather of the probed cells + torch.matmul + torch.topk. The
+   wrapper's grid rule (blocks per probed cell) is timed against fixed values.
+
 The last line is {"ok": true, "device": {...}}; the line before it is the
 kernel table as JSON.
 """
@@ -48,6 +76,9 @@ import time
 D = 384
 N_KERNEL = 1_000_000
 N_MAIN = 131_072
+N_GRAPH = 10_000_000
+FIRST_K = 30
+IVF_CELL, IVF_NPROBE, IVF_K, IVF_BLOCK_Q = 2048, 32, 64, 8
 SEED = 0
 F32_TOL = 1e-5
 # Served (batched) against single searches: the bf16 encoder's output moves
@@ -108,6 +139,14 @@ def ids_agree(ref_s, ref_i, got_i, tol: float) -> bool:
     nxt = np.concatenate([gaps, np.full((s.shape[0], 1), np.inf)], axis=1)[:, :k]
     strict = (prev > tol) & (nxt > tol)
     return bool(np.array_equal(ref_i[:, :k][strict], got_i[strict]))
+
+
+def score_err(got, ref) -> float:
+    """Largest |got - ref|; equal entries (empty slots at -inf too) count 0."""
+    import numpy as np
+
+    with np.errstate(invalid="ignore"):
+        return float(np.max(np.abs(np.where(got == ref, 0.0, got - ref))))
 
 
 # --- phase 2 -------------------------------------------------------------
@@ -172,6 +211,7 @@ def kernel_phase(torch, topk) -> dict:
         torch.cuda.synchronize()
         ps, pi = topk.fused_topk_int8_plain(q, ct8, sc8, k, n_valid=n_valid)
         s, i, ps, pi = (x.cpu().numpy() for x in (s, i, ps, pi))
+        errs["fused_topk_int8"] = max(errs["fused_topk_int8"], score_err(s, ps))
         if not (np.array_equal(s, ps) and np.array_equal(i, pi)):
             raise AssertionError(f"int8 Q={q_n} k={k}: not bitwise equal to the plain version")
         check_ties(np, "int8", q_n, k, s, i, src, n)
@@ -286,6 +326,302 @@ def check_ties(np, label, q_n, k, s, i, src, n):
         raise AssertionError(f"{label} Q={q_n} k={k}: zero row gave {i[8][:5]} {s[8][:5]}")
 
 
+# --- phase 4: first-k alone ------------------------------------------------
+
+
+def first_k_phase(torch, graph_index) -> dict:
+    import numpy as np
+
+    dev = torch.device("cuda")
+    n, k = N_GRAPH, FIRST_K
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    sparse = (torch.rand((n,), generator=gen, device=dev) < 1e-3).to(torch.int8)
+    last = torch.zeros((n,), dtype=torch.int8, device=dev)
+    last[-3:] = 1
+    cases = {
+        "rate 1e-3": sparse,
+        "rate 1.0": torch.ones((n,), dtype=torch.int8, device=dev),
+        "no hits": torch.zeros((n,), dtype=torch.int8, device=dev),
+        "three hits in the last rows": last,
+        "bool, ragged length": sparse[: n - 12_345].bool(),
+        "unaligned view": sparse[3:],
+    }
+    kernel, plain = graph_index.masked_first_k, graph_index.masked_first_k_plain
+    big_k = 5000  # k above the hit count of a block and of the sparse vector's head
+    max_err = 0  # largest |id difference| or |count difference| seen, kernel against plain
+    for label, hit, kk in [(label, hit, k) for label, hit in cases.items()] + [
+            (f"rate 1e-3, k={big_k}", sparse, big_k)]:
+        ids, cnt = kernel(hit, kk)
+        torch.cuda.synchronize()
+        pids, pcnt = plain(hit, kk)
+        max_err = max(max_err, int((ids.long() - pids.long()).abs().max()),
+                      abs(int(cnt) - int(pcnt)))
+        if not (torch.equal(ids, pids) and int(cnt) == int(pcnt)):
+            raise AssertionError(f"first-k {label}: kernel {ids.tolist()[:40]} count {int(cnt)} != "
+                                 f"plain {pids.tolist()[:40]} count {int(pcnt)}")
+    print(f"first-k check N={n} k={k}: {len(cases)} hit patterns and k={big_k} equal to the "
+          f"plain version (ids and count, max difference {max_err})", flush=True)
+    ms = time_ms(torch, lambda: kernel(sparse, k))
+    plain_ms = time_ms(torch, lambda: plain(sparse, k))
+    lib_ms = time_ms(torch, lambda: torch.nonzero(sparse)[:k])
+    dense_ms = time_ms(torch, lambda: kernel(cases["rate 1.0"], k))
+    b_ms = (n + 4 * k + 4) / PEAK_BYTES * 1e3
+    print(f"kernel first_k N={n} k={k} rate 1e-3: {ms:.4f} ms (rate 1.0: {dense_ms:.4f} ms), "
+          f"plain {plain_ms:.4f} ms, library torch.nonzero {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+          f"(bytes), {b_ms / ms:.1%} of bound", flush=True)
+    profile_breakdown(torch, "first_k", 1, lambda: kernel(sparse, k))
+    kernel.launches = 0
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by="bytes",
+                max_abs_err=float(max_err), shape={"N": n, "k": k, "hit_rate": 1e-3})
+
+
+# --- phase 5: graph store at scale -------------------------------------------
+
+
+def graph_scale_phase(torch, graph_index) -> None:
+    import numpy as np
+
+    t0 = time.perf_counter()
+    g = graph_index.GraphIndex()
+    rng = np.random.default_rng(SEED)
+    n = N_GRAPH
+    quarters = [f"Q{q}_FY{y}" for y in range(2018, 2031) for q in range(1, 5)]
+    qv = g.intern_quarters(quarters)
+    ev = g.intern_entities([f"Metric {i}" for i in range(200)] + ["Net Profit"])
+    g.add_facts_bulk(
+        quarter_ids=qv[rng.integers(0, len(qv), n - 5)],
+        entity_ids=ev[rng.integers(0, len(ev), n - 5)],
+        type_ids=rng.integers(0, 4, n - 5).astype(np.int32),
+        values=rng.uniform(1, 1e5, n - 5).astype(np.float32),
+        dataset_id="synthetic",
+    )
+    # Two late quarters that only three rare entities touch: A and B share
+    # Q3_FY2031, B and C share Q4_FY2031 (the table's last rows).
+    g.add_facts_bulk(
+        quarter_ids=g.intern_quarters(["Q3_FY2031", "Q3_FY2031", "Q4_FY2031", "Q4_FY2031", "Q4_FY2031"]),
+        entity_ids=g.intern_entities(["Rare A", "Rare B", "Rare B", "Rare C", "Rare C"]),
+        type_ids=np.array([graph_index.METRIC] * 5, np.int32),
+        values=np.array([1.0, 2.0, 3.0, 777.0, 4.0], np.float32),
+        dataset_id="rare", company="Rare Bank",
+    )
+    packed = g._pack()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    host, total = packed["host"], int(packed["quarter_ids"].shape[0])
+    if not packed["quarter_ids"].is_cuda or g.n_facts != n or total < graph_index.FIRST_K_MIN_ROWS:
+        raise AssertionError("the 10M-fact store is not on the card at full size")
+
+    def values_of(rows):
+        return [r.get("value", r.get("revenue")) for r in rows]
+
+    graph_index.masked_first_k.launches = 0
+    checks = 0
+    for names, types, limit in (
+        (["Metric 7"], [graph_index.SEGMENT], 25),
+        (["Net Profit"], None, 30),
+        (["Rare C"], [graph_index.METRIC], 30),  # hits in the last rows only
+        (["Metric 3", "Metric 150"], [graph_index.RATIO, graph_index.BALANCE], 30),
+    ):
+        sel = np.isin(host["entity_ids"], [g._entity_id[x] for x in names])
+        if types is not None:
+            sel &= np.isin(host["type_ids"], types)
+        want = [float(v) for v in host["value"][np.nonzero(sel)[0][:limit]]]
+        got = values_of(g.match(names=names, types=types, limit=limit))
+        if got != want:
+            raise AssertionError(f"graph match {names} {types}: {got[:5]} != oracle {want[:5]}")
+        checks += 1
+    scoped = g.match(names=["Rare B"], companies=["Rare Bank"])
+    if values_of(scoped) != [2.0, 3.0] or [r["quarter"] for r in scoped] != ["Q3_FY2031", "Q4_FY2031"]:
+        raise AssertionError(f"company-scoped match gave {scoped}")
+    launches = graph_index.masked_first_k.launches
+    if launches != checks + 1:
+        raise AssertionError(f"{checks + 1} matches at {total} rows made {launches} first-k launches")
+
+    e7 = g._entity_id["Metric 7"]
+    sel = (host["entity_ids"] == e7) & (host["type_ids"] == graph_index.RATIO)
+    vals = host["value"][sel].astype(np.float64)
+    agg = g.aggregate(names=["Metric 7"], types=[graph_index.RATIO])
+    rows = np.nonzero(sel)[0]
+    if (agg["count"] != int(sel.sum()) or abs(agg["mean"] - vals.mean()) > 1e-3 * vals.mean()
+            or agg["max"]["value"] != float(host["value"][rows[np.argmax(host["value"][rows])]])
+            or agg["min"]["value"] != float(host["value"][rows[np.argmin(host["value"][rows])]])):
+        raise AssertionError(f"graph aggregate {agg} differs from the numpy oracle")
+
+    def khop_oracle(seed_names, hops, limit):
+        e_mask = np.zeros(len(g.entities), bool)
+        e_mask[[g._entity_id[x] for x in seed_names]] = True
+        q_mask = np.zeros(len(g.quarters), bool)
+        for _ in range(hops):
+            q_mask[np.unique(host["quarter_ids"][e_mask[host["entity_ids"]]])] = True
+            e_mask[np.unique(host["entity_ids"][q_mask[host["quarter_ids"]]])] = True
+        return [float(v) for v in host["value"][np.nonzero(q_mask[host["quarter_ids"]])[0][:limit]]]
+
+    for hops, want_n in ((1, 2), (2, 5)):
+        got = values_of(g.expand(["Rare A"], limit=30, hops=hops))
+        if got != khop_oracle(["Rare A"], hops, 30) or len(got) != want_n:
+            raise AssertionError(f"graph expand hops={hops}: {got}")
+    if values_of(g.expand(["Metric 7"], limit=30, hops=2)) != khop_oracle(["Metric 7"], 2, 30):
+        raise AssertionError("graph expand from a common entity differs from the oracle")
+
+    match_ms = time_ms(torch, lambda: g.match(names=["Metric 7"], types=[graph_index.SEGMENT]), runs=10)
+    agg_ms = time_ms(torch, lambda: g.aggregate(names=["Metric 7"]), runs=10)
+    hop_ms = time_ms(torch, lambda: g.expand(["Rare A"], hops=2), runs=10)
+    print(f"graph store: {n} facts packed onto the card in {build_s:.1f} s ({total} padded rows); "
+          f"match, aggregate, expand(hops=2) equal to the numpy oracle; {launches} first-k "
+          f"launches; whole calls (host included): match {match_ms:.3f} ms, aggregate "
+          f"{agg_ms:.3f} ms, expand(hops=2) {hop_ms:.3f} ms", flush=True)
+    profile_breakdown(torch, "graph match 10M", 1,
+                      lambda: g.match(names=["Metric 7"], types=[graph_index.SEGMENT]))
+    profile_breakdown(torch, "graph expand(hops=2) 10M", 1, lambda: g.expand(["Rare A"], hops=2))
+    graph_index.masked_first_k.launches = 0
+
+
+# --- phase 6: IVF alone --------------------------------------------------------
+
+
+def ivf_bound(qp: int, nprobe: int, cell: int, corpus: str, ops_type: str) -> tuple[float, str]:
+    """Least time for one pruned top-k call: the probed cells read once per
+    query tile over the memory rate, or 2*Qp*nprobe*cell*D operations over
+    the peak rate of their type, whichever is larger."""
+    item = {"float32": 4, "bfloat16": 2, "int8": 1}[corpus]
+    t_bytes = (qp // IVF_BLOCK_Q) * nprobe * cell * D * item / PEAK_BYTES * 1e3
+    t_ops = 2.0 * qp * nprobe * cell * D / PEAK_OPS[ops_type] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ivf_phase(torch, topk, ivf) -> dict:
+    import numpy as np
+
+    from ragfin_tpu_torch.ops.quantize import quantize_corpus_t
+
+    dev = torch.device("cuda")
+    n = N_KERNEL
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    # Clustered unit vectors (240 centres, about two cells each), so that
+    # probing has structure.
+    centres = torch.randn((240, D), generator=gen, device=dev)
+    which = torch.randint(0, 240, (n,), generator=gen, device=dev)
+    x = centres[which] + 0.7 * torch.randn((n, D), generator=gen, device=dev)
+    x = x / torch.linalg.vector_norm(x, dim=1, keepdim=True)
+    ct32 = x.T.contiguous()
+    q_all = x[torch.randint(0, n, (64,), generator=gen, device=dev)]
+    q_all = q_all + 0.3 * torch.randn((64, D), generator=gen, device=dev)
+    q_all = (q_all / torch.linalg.vector_norm(q_all, dim=1, keepdim=True)).contiguous()
+    del x, centres
+    t0 = time.perf_counter()
+    idx32 = ivf.build_ivf(ct32, cell=IVF_CELL, seed=SEED)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_cells = idx32.n_cells
+    ids = idx32.orig_ids.cpu().numpy()
+    if (idx32.n_valid != n or n_cells != -(-n // IVF_CELL) or (ids[:n] == topk.INT32_MAX).any()
+            or not (ids[n:] == topk.INT32_MAX).all()
+            or not np.array_equal(np.sort(ids[:n]), np.arange(n))):
+        raise AssertionError("build_ivf: cells are not a balanced permutation with pads last")
+    print(f"IVF build: N={n} D={D} cell={IVF_CELL} -> {n_cells} cells, 4 Lloyd iterations, "
+          f"{build_s:.1f} s (device scoring and the host assignment)", flush=True)
+    flat = idx32.cells.permute(1, 0, 2).reshape(D, -1)
+    c8, sc8 = quantize_corpus_t(flat)
+    tiles = lambda t, rows: t.reshape(rows, n_cells, IVF_CELL).permute(1, 0, 2).contiguous()
+    idx16 = idx32._replace(cells=idx32.cells.to(torch.bfloat16))
+    idx8 = idx32._replace(cells=tiles(c8, D), scales=tiles(sc8, 1))
+    del flat, c8, sc8
+
+    tiers = (("f32 exact", idx32, "exact", "float32", "float32"),
+             ("bf16 fast", idx16, "fast", "bfloat16", "bfloat16"),
+             ("int8", idx8, "fast", "int8", "int8"))
+    rows, max_err = {}, 0.0
+    for q_n in (1, 8, 64):
+        q = q_all[:q_n].contiguous()
+        for label, index, precision, corpus_dtype, ops_type in tiers:
+            qin, qs, probe, _ = ivf.stage_queries(q, index, IVF_NPROBE, IVF_BLOCK_Q, precision)
+            args = (qin, qs, index.cells, index.scales, probe, index.n_valid)
+            s, i = ivf.pruned_topk(*args, IVF_K, IVF_BLOCK_Q)
+            torch.cuda.synchronize()
+            ps, pi = ivf.pruned_topk_plain(*args, IVF_K + 1, IVF_BLOCK_Q)
+            s, i, ps, pi = (t.cpu().numpy() for t in (s, i, ps, pi))
+            if index.scales is not None:
+                ref = ps[:, :IVF_K]
+                max_err = max(max_err, score_err(s, ref))
+                if not (np.array_equal(s, ref) and np.array_equal(i, pi[:, :IVF_K])):
+                    raise AssertionError(f"IVF {label} Q={q_n}: not bitwise equal to the plain version")
+            else:
+                err = float(np.max(np.abs(s - ps[:, :IVF_K])))
+                max_err = max(max_err, err)
+                if err > F32_TOL or not ids_agree(ps, pi, i, F32_TOL):
+                    raise AssertionError(f"IVF {label} Q={q_n}: err {err}, or ids differ outside tie bands")
+            # The whole function: original ids, finite scores, real rows only.
+            ws, wi = ivf.ivf_topk(q, index, IVF_K, nprobe=IVF_NPROBE, block_q=IVF_BLOCK_Q,
+                                  precision=precision)
+            wi = wi.cpu().numpy()
+            if ws.shape != (q_n, IVF_K) or not torch.isfinite(ws).all() or wi.max() >= n or wi.min() < 0:
+                raise AssertionError(f"IVF {label} Q={q_n}: bad ivf_topk output")
+            ms = time_ms(torch, lambda: ivf.pruned_topk(*args, IVF_K, IVF_BLOCK_Q))
+            plain_ms = time_ms(torch, lambda: ivf.pruned_topk_plain(*args, IVF_K, IVF_BLOCK_Q),
+                               runs=5, warmup=1)
+            lib_ms = None
+            if index.scales is None:
+                qt = qin.to(index.cells.dtype).reshape(-1, 1, IVF_BLOCK_Q, D)
+
+                def library():
+                    sc = torch.matmul(qt, index.cells[probe.long()])  # [tiles, nprobe, block_q, cell]
+                    return torch.topk(sc.permute(0, 2, 1, 3).reshape(qin.shape[0], -1), IVF_K)
+
+                lib_ms = time_ms(torch, library, runs=5, warmup=1)
+            b_ms, b_by = ivf_bound(qin.shape[0], IVF_NPROBE, IVF_CELL, corpus_dtype, ops_type)
+            rows[(label, q_n)] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                                      bound_by=b_by)
+            print(f"kernel ivf_topk[{label}] Q={q_n} N={n} nprobe={IVF_NPROBE} k={IVF_K}: "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+                  f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound {b_ms:.4f} ms "
+                  f"({b_by}), {b_ms / ms:.1%} of bound", flush=True)
+        print(f"IVF check Q={q_n}: f32 and bf16 within {F32_TOL} of the plain version, "
+              f"int8 bitwise equal", flush=True)
+
+    # The grid rule of the wrapper (ivf._splits: blocks per probed cell)
+    # against fixed values: equal outputs, and the time of each.
+    rule = ivf._splits
+    try:
+        for label, index, precision in (("f32 exact", idx32, "exact"), ("int8", idx8, "fast")):
+            for q_n in (1, 8, 64):
+                qin, qs, probe, _ = ivf.stage_queries(q_all[:q_n].contiguous(), index, IVF_NPROBE,
+                                                      IVF_BLOCK_Q, precision)
+                args = (qin, qs, index.cells, index.scales, probe, index.n_valid, IVF_K, IVF_BLOCK_Q)
+                chosen = rule(qin.shape[0] // 8, IVF_NPROBE, IVF_CELL // 128, dev)
+                want = ivf.pruned_topk(*args)
+                line = []
+                for fixed in (1, 2, 4, 8, 16):
+                    ivf._splits = lambda *a, fixed=fixed: fixed
+                    got = ivf.pruned_topk(*args)
+                    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                        raise AssertionError(f"IVF {label} Q={q_n}: splits={fixed} gives another result")
+                    line.append(f"{fixed}: {time_ms(torch, lambda: ivf.pruned_topk(*args)):.4f} ms")
+                ivf._splits = rule
+                print(f"ivf_topk[{label}] Q={q_n} by splits (the wrapper picks {chosen}): "
+                      + ", ".join(line), flush=True)
+    finally:
+        ivf._splits = rule
+
+    # Full probe equals the exact fused tier over the same vectors.
+    q = q_all[:8].contiguous()
+    ws, wi = ivf.ivf_topk(q, idx32, IVF_K, nprobe=n_cells, block_q=IVF_BLOCK_Q, precision="exact")
+    es, ei = topk.cosine_topk_fused(q, ct32, IVF_K + 1)
+    ws, wi, es, ei = (t.cpu().numpy() for t in (ws, wi, es, ei))
+    err = float(np.max(np.abs(ws - es[:, :IVF_K])))
+    if err > F32_TOL or not ids_agree(es, ei, wi, F32_TOL):
+        raise AssertionError(f"IVF full probe differs from the exact fused tier (err {err})")
+    approx = ivf.ivf_topk(q, idx32, 10, nprobe=IVF_NPROBE, block_q=IVF_BLOCK_Q, precision="exact")[1]
+    recall = float(np.mean([len(set(a) & set(b)) / 10 for a, b in zip(approx.cpu().numpy(), ei[:, :10])]))
+    print(f"IVF full probe (nprobe={n_cells}) equals the exact fused tier within {F32_TOL}; "
+          f"recall@10 at nprobe={IVF_NPROBE}: {recall:.3f}", flush=True)
+    qin, qs, probe, _ = ivf.stage_queries(q_all, idx32, IVF_NPROBE, IVF_BLOCK_Q, "exact")
+    profile_breakdown(torch, "ivf_topk f32", 64,
+                      lambda: ivf.pruned_topk(qin, qs, idx32.cells, None, probe, n, IVF_K, IVF_BLOCK_Q))
+    ivf.pruned_topk.launches = 0
+    topk.cosine_topk_fused.launches = 0
+    return {"rows": rows, "max_abs_err": max_err, "n": n, "n_cells": n_cells}
+
+
 # --- phase 3 -------------------------------------------------------------
 
 
@@ -343,6 +679,174 @@ def hits_agree(a: list[dict], b: list[dict], tol: float) -> bool:
     ib = np.array([[ids[h["id"]] for h in b]])
     # The last rank's successor is unknown: compare its score only.
     return ids_agree(sa, ia, ib[:, :-1], tol)
+
+
+def hybrid_phase(torch, topk, engine, chunks) -> dict:
+    """Graph build from the vector index, then graph and hybrid questions on
+    the main-path engine, counters at 0 just before."""
+    from ragfin_tpu_torch.index import graph_index
+
+    t0 = time.perf_counter()
+    built = engine.graph_builder.build_from_vector_index(engine.vector_index)
+    packed = engine.graph._pack()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    facts, total = engine.graph.n_facts, int(packed["quarter_ids"].shape[0])
+    print(f"graph build: {built['chunks_processed']} chunks processed, {built['chunks_failed']} "
+          f"failed, {facts} facts ({facts / len(chunks):.2f} per chunk) in {build_s:.1f} s = "
+          f"{len(chunks) / build_s:.0f} chunks/s (rule-based extraction on the host, then one "
+          f"pack onto the card)", flush=True)
+    if built["chunks_processed"] != len(chunks) or built["chunks_failed"]:
+        raise AssertionError(f"graph build did not process every chunk: {built}")
+    if total < graph_index.FIRST_K_MIN_ROWS or not packed["quarter_ids"].is_cuda:
+        raise AssertionError(f"{total} fact rows: the graph path would not reach the first-k kernel")
+    if engine.health()["graph"]["facts"] != facts:
+        raise AssertionError("health() does not report the graph's facts")
+    engine.warmup()
+
+    banks = sorted({c.company for c in chunks})
+    fy24 = next(c for c in chunks if c.period.endswith("FY2024") and c.chunk_type == "profitability_analysis")
+    quarter = fy24.period.split("_")[0]
+    qs = [
+        f"What was {fy24.company}'s net profit in {quarter} FY2024?",      # single quarter
+        f"How did {banks[0]}'s net profit evolve across all quarters?",    # all quarters
+        f"How did the retail segment of {banks[1]} do?",                   # segment
+        f"Which quarter did {banks[2]}'s net profit peak?",                # extremum (max)
+        f"Which quarter had the lowest cost ratio for {banks[3]}?",        # extremum (min)
+        f"What were {banks[4]}'s deposits and advances trend?",            # company-scoped trend
+    ]
+    hybrid, graph_builder = engine.hybrid, engine.graph_builder
+    torch.cuda.synchronize()
+
+    # ---- the driven run: counters 0 just before, read just after -------
+    topk.cosine_topk_fused.launches = 0
+    graph_index.masked_first_k.launches = 0
+    planned = {q: asyncio.run(graph_builder.query(q, limit=10)) for q in qs}
+    searched = {q: asyncio.run(hybrid.graph_search(q)) for q in qs}
+    fused = {q: asyncio.run(hybrid.hybrid_query(q, vector_k=10, k_out=20)) for q in qs}
+    torch.cuda.synchronize()
+    launches = {"fused_topk": topk.cosine_topk_fused.launches,
+                "first_k": graph_index.masked_first_k.launches}
+    # --------------------------------------------------------------------
+    if launches["fused_topk"] < len(qs) or launches["first_k"] < 2 * len(qs):
+        raise AssertionError(f"the hybrid path did not go through both kernels: {launches}")
+    strategies = {searched[q]["strategy"] for q in qs}
+    for q in qs:
+        if not planned[q] or not searched[q]["results"]:
+            raise AssertionError(f"no graph results for {q!r} ({searched[q]['strategy']})")
+        out = fused[q]
+        sources = [c["source"] for c in out["chunks"]]
+        n_vec = sources.count("vector")
+        ids = [c["id"] for c in out["chunks"]]
+        if (n_vec != out["vector_hits"] or sources[:n_vec] != ["vector"] * n_vec
+                or set(sources[n_vec:]) - {"graph"} or len(set(ids)) != len(ids)
+                or any(c["score"] != 1.0 for c in out["chunks"][n_vec:])
+                or not all(c["score"] == c["score"] for c in out["chunks"])):
+            raise AssertionError(f"hybrid chunks out of order for {q!r}: {sources}")
+        if out["graph_results"] != searched[q]["results"]:
+            raise AssertionError(f"hybrid and graph_search disagree for {q!r}")
+    if not any("graph" in [c["source"] for c in fused[q]["chunks"]] for q in qs):
+        raise AssertionError("no question brought a graph-only chunk into the fused list")
+    # The same graph searches with the first-k route forced to its plain version.
+    kernel = graph_index.masked_first_k
+    graph_index.masked_first_k = graph_index.masked_first_k_plain
+    try:
+        for q in qs:
+            if asyncio.run(hybrid.graph_search(q)) != searched[q]:
+                raise AssertionError(f"first-k kernel and plain version give other matches for {q!r}")
+    finally:
+        graph_index.masked_first_k = kernel
+    n_graph_only = sum(sources.count("graph") for sources in
+                       ([c["source"] for c in fused[q]["chunks"]] for q in qs))
+    print(f"hybrid path: {3 * len(qs)} requests over {facts} facts, strategies {sorted(strategies)}, "
+          f"{n_graph_only} graph-only chunks fused, launches {launches}, every match equal to the "
+          f"plain first-k route", flush=True)
+    parts, wall_ms = profiled(torch, lambda: hybrid.hybrid_query_simple(qs[3]), 5)
+    busy_ms = sum(ms for ms, _ in parts)
+    top = ", ".join(f"{name} {ms:.3f} ms" for ms, name in parts[:6]) or "no device time seen"
+    print(f"hybrid request {qs[3]!r} alone: wall {wall_ms:.2f} ms, device busy {busy_ms:.3f} ms, "
+          f"idle share {1 - busy_ms / wall_ms:.1%}; kernels: {top}", flush=True)
+    return launches
+
+
+def ivf_engine_phase(torch, topk, flat_engine, chunks, unscoped, scoped) -> tuple[int, float]:
+    """Settings(index_type="ivf") over the same filings: requests through
+    the pruned kernel, then full probe against the flat engine."""
+    import numpy as np
+
+    from ragfin_tpu_torch.config.settings import Settings
+    from ragfin_tpu_torch.ops import ivf
+    from ragfin_tpu_torch.serving.engine import RagFinEngine
+
+    t0 = time.perf_counter()
+    engine = RagFinEngine(settings=Settings(embed_backend="trained", index_type="ivf",
+                                            ivf_nprobe=IVF_NPROBE, index_dir=""), chunks=chunks)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    index = engine.vector_index
+    stats = index.stats()
+    if (stats["index_type"] != "IVF_BALANCED" or stats["n_cells"] != len(chunks) // IVF_CELL
+            or stats["nprobe"] != min(IVF_NPROBE, stats["n_cells"]) or not index.ivf.cells.is_cuda
+            or engine.vector_rag._searcher is not None):
+        raise AssertionError(f"unexpected IVF engine {stats}")
+    print(f"IVF engine: {len(chunks)} chunks encoded and clustered in {build_s:.1f} s; "
+          f"stats {json.dumps(stats)}", flush=True)
+    request_set = unscoped[:8] + scoped[:4]
+    engine.vector_rag.search(request_set[0], top_k=3)  # first call pays one-time costs
+    torch.cuda.synchronize()
+
+    # ---- the driven run: counters 0 just before, read just after -------
+    ivf.pruned_topk.launches = 0
+    hits = {q: engine.vector_rag.search(q, top_k=3) for q in request_set}
+    answer = asyncio.run(engine.vector_rag.search_and_answer(request_set[0], top_k=3))
+    torch.cuda.synchronize()
+    launches = ivf.pruned_topk.launches
+    # --------------------------------------------------------------------
+    if launches < len(request_set):
+        raise AssertionError(f"{len(request_set)} IVF requests made {launches} pruned-kernel launches")
+    if not answer.get("answer") or any(len(h) != 3 for h in hits.values()):
+        raise AssertionError("the IVF engine did not answer every request")
+    # Full probe + the exact host re-score equals the flat engine's raw search.
+    a = flat_engine.vector_index.search_texts(request_set, top_k=10)
+    b = index.search_texts(request_set, top_k=10, nprobe=stats["n_cells"])
+    bad = [q for q, ha, hb in zip(request_set, a, b)
+           if not hits_agree([h.to_dict(False) for h in ha], [h.to_dict(False) for h in hb], F32_TOL)]
+    if bad:
+        raise AssertionError(f"IVF full probe differs from the flat index for {bad}")
+    part = index.search_texts(request_set, top_k=10)
+    # The pruned kernel against its plain version on this engine's inputs:
+    # its cells, its probe table at nprobe 32 and the repair's shortlist width.
+    emb = index.embedder.encode_texts(request_set)
+    emb = torch.as_tensor(emb).to(index.ivf.cells.device, torch.float32)
+    precision = "exact" if index.ivf.cells.dtype == torch.float32 else "fast"
+    qin, qs, probe, _ = ivf.stage_queries(emb, index.ivf, stats["nprobe"], IVF_BLOCK_Q, precision)
+    args = (qin, qs, index.ivf.cells, index.ivf.scales, probe, index.ivf.n_valid)
+    s, i = ivf.pruned_topk(*args, IVF_K, IVF_BLOCK_Q)
+    ps, pi = ivf.pruned_topk_plain(*args, IVF_K + 1, IVF_BLOCK_Q)
+    s, i, ps, pi = (t.cpu().numpy() for t in (s, i, ps, pi))
+    err = float(np.max(np.abs(s - ps[:, :IVF_K])))
+    if err > F32_TOL or not ids_agree(ps, pi, i, F32_TOL):
+        raise AssertionError(f"IVF engine: kernel differs from its plain version (err {err})")
+    kernel = ivf.pruned_topk
+    ivf.pruned_topk = ivf.pruned_topk_plain
+    try:
+        part_plain = index.search_texts(request_set, top_k=10)
+    finally:
+        ivf.pruned_topk = kernel
+    bad = [q for q, ha, hb in zip(request_set, part_plain, part)
+           if not hits_agree([h.to_dict(False) for h in ha], [h.to_dict(False) for h in hb], F32_TOL)]
+    if bad:
+        raise AssertionError(f"IVF engine at nprobe={stats['nprobe']}: hits through the kernel and "
+                             f"through its plain version differ for {bad}")
+    recall = statistics.mean(len({h.id for h in ha} & {h.id for h in hb}) / 10 for ha, hb in zip(a, part))
+    print(f"IVF engine: {len(request_set) + 1} requests, pruned kernel launches {launches}; "
+          f"nprobe={stats['n_cells']} hits equal to the flat index's; at nprobe={IVF_NPROBE} "
+          f"the kernel is within {F32_TOL} of its plain version on the engine's inputs (max "
+          f"{err:.3g}) and the hits are equal with the plain version in its place; recall@10: "
+          f"{recall:.3f}", flush=True)
+    request_breakdown(torch, engine.vector_rag, request_set[0])
+    engine.close()
+    return launches, err
 
 
 def main_path_phase(torch, topk) -> dict:
@@ -470,6 +974,9 @@ def main_path_phase(torch, topk) -> dict:
     for q in (unscoped[0], scoped[0]):
         request_breakdown(torch, rag, q)
 
+    hybrid_launches = hybrid_phase(torch, topk, engine, chunks)
+    ivf_launches, ivf_err = ivf_engine_phase(torch, topk, engine, chunks, unscoped, scoped)
+
     # ---- int8 index over the same embeddings ---------------------------
     emb_rows = index.matrix_t[:, : index.n].T.contiguous()
     idx8 = DeviceVectorIndex(emb_rows, chunks, dtype="int8", normalize=False)
@@ -495,13 +1002,17 @@ def main_path_phase(torch, topk) -> dict:
     engine8.close()
     engine.close()
     launches["fused_topk_int8"] = launches8
-    return {"launches": launches, "p50_ms": p50}
+    launches["first_k"] = hybrid_launches["first_k"]
+    launches["ivf_topk"] = ivf_launches
+    return {"launches": launches, "p50_ms": p50, "ivf_engine_err": ivf_err}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels", action="store_true",
-                    help="build, check and time the kernels only (phases 1 and 2)")
+                    help="build, check and time the kernels alone (phases 1, 2, 4 and 6)")
+    ap.add_argument("--graph", action="store_true",
+                    help="build, first-k alone and the graph store at scale (phases 1, 4 and 5)")
     args = ap.parse_args()
     try:
         import torch
@@ -512,7 +1023,8 @@ def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     try:
-        from ragfin_tpu_torch.ops import _cuda, topk
+        from ragfin_tpu_torch.index import graph_index
+        from ragfin_tpu_torch.ops import _cuda, ivf, topk
     except ImportError as e:
         return fail(f"the ragfin_tpu_torch package is not beside this script ({e})")
 
@@ -531,9 +1043,15 @@ def main() -> int:
             if "registers" in line or "spill" in line or "smem" in line.lower():
                 print(f"ptxas {name}: {line.strip()}", flush=True)
 
+    first_k = first_k_phase(torch, graph_index)
+    if args.graph:
+        graph_scale_phase(torch, graph_index)
+        return 0
     kern = kernel_phase(torch, topk)
+    ivf_alone = ivf_phase(torch, topk, ivf)
     if args.kernels:
         return 0
+    graph_scale_phase(torch, graph_index)
     main_path = main_path_phase(torch, topk)
 
     rows = kern["rows"]
@@ -553,6 +1071,26 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": {"Q": 64, "N": kern["n"], "D": D, "k": r["k"]},
         })
+    r = ivf_alone["rows"][("f32 exact", 64)]
+    table.append({
+        "name": "ivf_topk", "route": "cuda", "source": "ragfin_tpu_torch/csrc/ivf_topk.cu",
+        "replaces": "ragfin_tpu/ops/ivf.py:293",
+        "launches": main_path["launches"]["ivf_topk"],
+        "max_abs_err": max(ivf_alone["max_abs_err"], main_path["ivf_engine_err"]),
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        "shape": {"Q": 64, "block_q": IVF_BLOCK_Q, "N": ivf_alone["n"], "D": D, "cell": IVF_CELL,
+                  "nprobe": IVF_NPROBE, "k": IVF_K, "cells": "float32"},
+    })
+    table.append({
+        "name": "first_k", "route": "cuda", "source": "ragfin_tpu_torch/csrc/first_k.cu",
+        "replaces": "ragfin_tpu/index/graph_index.py:81",
+        "launches": main_path["launches"]["first_k"],
+        **first_k,
+    })
+    for row in table:
+        if row["launches"] < 1:
+            return fail(f"kernel {row['name']} was launched no time on its path")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,7 @@
-"""Environment-driven configuration for the vector half of the port.
+"""Environment-driven configuration of the port.
 
 Counterpart of ``ragfin_tpu/config/settings.py``, cut to the fields the
-vector-RAG path reads. The environment variables and defaults are the JAX
+ported paths (vector, graph and hybrid retrieval, flat and IVF index) read. The environment variables and defaults are the JAX
 package's, so one ``.env`` configures both packages alike.
 """
 
@@ -11,6 +11,8 @@ import os
 from dataclasses import dataclass, field
 from functools import lru_cache
 from typing import Optional
+
+from .constants import SUPPORTED_MODELS
 
 
 def load_dotenv(path: str = ".env") -> None:
@@ -39,19 +41,44 @@ def _default_backend() -> str:
 
 @dataclass
 class Settings:
+    # Model / provider ("fake" = no LLM: lexical question entities and
+    # rule-based extraction)
+    default_model: str = "fake"
+    gemini_api_key: Optional[str] = None
+    openai_api_key: Optional[str] = None
+    groq_api_key: Optional[str] = None
+    ollama_base_url: str = "http://localhost:11434"
+
     index_dir: str = ".ragfin_index"
     default_top_k: int = 3
     embed_backend: str = field(default_factory=lambda: _default_backend())
     trained_checkpoint: Optional[str] = None  # None -> packaged default dir
     # "float32" (exact f32 scoring) | "bfloat16" | "int8" (per-column scales)
     index_dtype: str = "float32"
-    index_type: str = "flat"  # "flat" | "ivf" (IVF: ROADMAP Slice 3)
+    # "flat" = exact search; "ivf" = the reference's index type
+    # (cluster-pruned approximate, nlist/nprobe semantics)
+    index_type: str = "flat"
+    ivf_nprobe: int = 32
     integrity_weight: float = 0.0
     batch_queries: bool = True  # dynamic micro-batching on the query path
+
+    def get_api_key_for_model(self, model_name: str) -> Optional[str]:
+        """Per-provider key lookup."""
+        if "gemini" in model_name:
+            return self.gemini_api_key
+        if "gpt" in model_name:
+            return self.openai_api_key
+        if "llama" in model_name or "groq" in model_name:
+            return self.groq_api_key
+        return None
 
     def validate(self) -> list[str]:
         """Configuration issues as warnings, like the JAX package's."""
         issues = []
+        if self.default_model not in SUPPORTED_MODELS:
+            issues.append(f"unknown default_model '{self.default_model}'")
+        if self.default_model != "fake" and not self.get_api_key_for_model(self.default_model):
+            issues.append(f"no API key configured for '{self.default_model}'")
         if self.default_top_k < 1:
             issues.append("default_top_k must be >= 1")
         if self.embed_backend != "trained":
@@ -67,8 +94,15 @@ class Settings:
                 issues.append(f"embed_backend=trained but no checkpoint at '{ckpt}'")
         if self.index_dtype not in ("float32", "bfloat16", "int8"):
             issues.append(f"unknown index_dtype '{self.index_dtype}'")
-        if self.index_type != "flat":
-            issues.append(f"index_type '{self.index_type}' is not ported (ROADMAP Slice 3)")
+        if self.index_type not in ("flat", "ivf"):
+            issues.append(f"unknown index_type '{self.index_type}'")
+        if self.ivf_nprobe < 1:
+            issues.append("ivf_nprobe must be >= 1")
+        if self.integrity_weight > 0 and self.index_type == "ivf":
+            issues.append(
+                "integrity_weight > 0 requires the FilteredSearch pipeline "
+                "(index_type=flat); with index_type=ivf it never applies"
+            )
         return issues
 
 
@@ -76,12 +110,18 @@ def _from_env() -> Settings:
     load_dotenv()
     env = os.environ
     return Settings(
+        default_model=env.get("RAGFIN_MODEL", env.get("DEFAULT_MODEL", "fake")),
+        gemini_api_key=env.get("GEMINI_API_KEY") or env.get("GOOGLE_API_KEY"),
+        openai_api_key=env.get("OPENAI_API_KEY"),
+        groq_api_key=env.get("GROQ_API_KEY"),
+        ollama_base_url=env.get("OLLAMA_BASE_URL", "http://localhost:11434"),
         index_dir=env.get("RAGFIN_INDEX_DIR", ".ragfin_index"),
         default_top_k=int(env.get("RAGFIN_TOP_K", "3")),
         embed_backend=env.get("RAGFIN_EMBED_BACKEND", _default_backend()),
         trained_checkpoint=env.get("RAGFIN_TRAINED_CHECKPOINT"),
         index_dtype=env.get("RAGFIN_INDEX_DTYPE", "float32"),
         index_type=env.get("RAGFIN_INDEX_TYPE", "flat"),
+        ivf_nprobe=int(env.get("RAGFIN_IVF_NPROBE", "32")),
         integrity_weight=float(env.get("RAGFIN_INTEGRITY_WEIGHT", "0")),
         batch_queries=env.get("RAGFIN_BATCH_QUERIES", "1") not in ("0", "false", "no"),
     )

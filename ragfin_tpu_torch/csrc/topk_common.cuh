@@ -198,4 +198,24 @@ __device__ __forceinline__ long long tile_base(int col0, long long tile_stride, 
   return (long long)(col0 / bn) * tile_stride + (col0 % bn);
 }
 
+// A probed walk (ivf_topk.cu): instead of chunk c covering tiles
+// [c * tiles_per_chunk, ...), block (query tile, y) covers split y % splits
+// of the cell that row (q0 / block_q) of the probe table [q_tiles, nprobe]
+// names at position y / splits. A cell is tiles_per_cell tiles of the
+// tile-major corpus, so a column's global index is its permuted id.
+struct ProbeWalk {
+  const int* probe = nullptr;
+  int nprobe = 0;
+  int block_q = 1;
+  int tiles_per_cell = 0;
+  int splits = 1;
+};
+
+__device__ __forceinline__ int probed_tile(const ProbeWalk& w, int q0, int y,
+                                           int tiles_per_chunk) {
+  const int j = y / w.splits, s = y - j * w.splits;
+  const int cell = w.probe[(long long)(q0 / w.block_q) * w.nprobe + j];
+  return cell * w.tiles_per_cell + s * tiles_per_chunk;
+}
+
 }  // namespace ragfin

@@ -37,6 +37,11 @@ KERNELS = {
         "ragfin_fused_topk_int8",
         [_P, _P, _I, _I, _P, _P, _LL, _LL, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     ),
+    "first_k": ("ragfin_first_k", [_P, _LL, _I, _I, _P, _P, _P, _P, _P]),
+    "ivf_topk": (
+        "ragfin_ivf_topk",
+        [_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P],
+    ),
 }
 
 _lock = threading.Lock()

@@ -1,19 +1,32 @@
-"""The retrieval engine, vector half.
+"""The single retrieval engine behind every frontend.
 
-Port of ``ragfin_tpu/serving/engine.py`` for the vector-RAG path: chunks ->
-trained embedder -> :class:`DeviceVectorIndex` on the card -> ``VectorRAG``
-(FilteredSearch, conflict flags, extractive answers) -> ``QueryBatcher``.
-The graph store, hybrid search, extraction and LLM providers are later
-slices (ROADMAP Slices 2 and 4); ``provider=None`` is the offline path.
+Port of ``ragfin_tpu/serving/engine.py``: chunks -> trained embedder ->
+:class:`DeviceVectorIndex` (or, with ``index_type="ivf"``, an
+:class:`IVFVectorIndex` over it) on the card -> ``VectorRAG``
+(FilteredSearch, conflict flags, extractive answers) -> ``QueryBatcher``;
+beside it the graph store (:class:`GraphIndex`), its ``GraphBuilder`` and query
+engine, and ``HybridRAG`` over both. ``default_model ==
+"fake"`` is the offline path: no provider, lexical question entities,
+rule-based extraction. REST/MCP frontends and loading chunks from
+``data_dir`` are a later slice (ROADMAP Slice 4).
+
+Unlike the JAX engine, nothing here falls back quietly: a graph store or an
+IVF index that fails to load raises, and ``warmup`` lets errors rise.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 from typing import Optional
 
 from ..config.settings import Settings, get_config
+from ..extraction.service import EntityExtractor, RuleBasedExtractor
+from ..index.graph_index import GraphIndex
 from ..index.vector_index import DeviceVectorIndex
+from ..llm.providers import LLMProvider, ModelFactory
+from ..retrieval.graph_rag import GraphBuilder
+from ..retrieval.hybrid import HybridRAG
 from ..retrieval.vector_rag import VectorRAG
 from ..utils.device import DeviceLike, resolve_device
 
@@ -21,32 +34,45 @@ logger = logging.getLogger("ragfin_tpu_torch.engine")
 
 
 class RagFinEngine:
-    """Vector index + VectorRAG + micro-batcher, built from Settings."""
+    """Vector index + graph store + RAG frontends, built from Settings."""
 
     def __init__(
         self,
         settings: Optional[Settings] = None,
         chunks=None,
-        provider=None,
+        provider: Optional[LLMProvider] = None,
         vector_index: Optional[DeviceVectorIndex] = None,
         device: DeviceLike = None,
     ):
         self.settings = settings or get_config()
         self.device = resolve_device(device)
-        self.provider = provider
-        if chunks is None and vector_index is None:
+        self.provider = provider if provider is not None else self._make_provider()
+        if chunks is None and vector_index is None and not self._saved_ivf():
             raise NotImplementedError(
                 "loading chunks from data_dir/snapshots is not ported yet "
                 "(ROADMAP Slice 4): pass chunks or a vector_index"
             )
         self.chunks = list(chunks) if chunks is not None else []
         self.vector_index = (
-            vector_index if vector_index is not None else self._build_index()
+            vector_index if vector_index is not None else self._build_or_load_index()
         )
+        self.graph = self._load_graph()
+        if self.provider is not None and self.settings.default_model != "fake":
+            # Reuse the engine's provider (one rate-limited client) instead
+            # of constructing a second one.
+            extractor = EntityExtractor(
+                self.settings.default_model,
+                self.settings.get_api_key_for_model(self.settings.default_model),
+                provider=self.provider,
+            )
+        else:
+            extractor = RuleBasedExtractor()
+        self.graph_builder = GraphBuilder(self.graph, extractor=extractor, provider=self.provider)
         self.vector_rag = VectorRAG(
             self.vector_index, self.provider,
             integrity_weight=self.settings.integrity_weight,
         )
+        self.hybrid = HybridRAG(self.vector_index, self.graph, self.provider)
         # Default query path: dynamic micro-batching over the retrieval
         # pipeline, so concurrent callers share device searches.
         self.batcher = None
@@ -56,29 +82,75 @@ class RagFinEngine:
             self.batcher = QueryBatcher(self.vector_rag._search_texts).start()
             self.vector_rag.batcher = self.batcher
         logger.info(
-            "engine ready: %d chunks indexed (dim=%d, %s) on %s, provider=%s",
+            "engine ready: %d chunks indexed (dim=%d, %s) on %s, %d graph facts, provider=%s",
             self.vector_index.n, self.vector_index.dim,
             "int8" if self.vector_index.quantized else str(self.vector_index.dtype),
-            self.device, getattr(self.provider, "model_name", None) or "offline",
+            self.device, self.graph.stats().get("total_facts", 0),
+            getattr(self.provider, "model_name", None) or "offline",
         )
 
-    def _build_index(self) -> DeviceVectorIndex:
-        if self.settings.index_type != "flat":
-            raise NotImplementedError("the IVF index is not ported yet (ROADMAP Slice 3)")
-        from ..models.embedder import make_embedder
+    # --- construction -----------------------------------------------------
+    def _make_provider(self) -> Optional[LLMProvider]:
+        model = self.settings.default_model
+        if model == "fake":
+            return None  # offline: deterministic paths only
+        return ModelFactory.create_provider(model, self.settings.get_api_key_for_model(model))
 
-        embedder = make_embedder(
-            self.settings.embed_backend,
-            checkpoint=self.settings.trained_checkpoint,
-            device=self.device,
-        )
-        return DeviceVectorIndex.build(
+    def _saved_ivf(self) -> bool:
+        index_dir = self.settings.index_dir
+        return bool(index_dir) and os.path.exists(os.path.join(index_dir, "ivf.json"))
+
+    def _build_or_load_index(self):
+        if self._saved_ivf():
+            from ..index.ivf_index import IVFVectorIndex
+
+            index = IVFVectorIndex.load(self.settings.index_dir, device=self.device)
+            # ivf.json records no trained embedder; queries are encoded with
+            # the one the settings name (the JAX engine leaves a loaded IVF
+            # index without a text encoder).
+            index.embedder = self._make_embedder()
+            return index
+        dense = DeviceVectorIndex.build(
             self.chunks,
-            embedder=embedder,
+            embedder=self._make_embedder(),
             batch_size=1024,
             dtype=self.settings.index_dtype,
             device=self.device,
         )
+        if self.settings.index_type == "ivf":
+            # The reference's actual index type (Milvus IVF_FLAT): cluster
+            # the built matrix; metadata-filtered search stays on the exact
+            # tier, so VectorRAG drops to raw (unfiltered) search here.
+            from ..index.ivf_index import IVFVectorIndex
+
+            return IVFVectorIndex.from_dense(dense, nprobe=self.settings.ivf_nprobe)
+        if self.settings.index_type != "flat":
+            raise ValueError(f"unknown index_type '{self.settings.index_type}'")
+        return dense
+
+    def _make_embedder(self):
+        from ..models.embedder import make_embedder
+
+        return make_embedder(
+            self.settings.embed_backend,
+            checkpoint=self.settings.trained_checkpoint,
+            device=self.device,
+        )
+
+    def _load_graph(self) -> GraphIndex:
+        graph_dir = os.path.join(self.settings.index_dir or "", "graph")
+        if self.settings.index_dir and os.path.exists(os.path.join(graph_dir, "graph.json")):
+            return GraphIndex.load(graph_dir, device=self.device)
+        return GraphIndex(device=self.device)
+
+    def persist(self) -> None:
+        """Save the graph store under ``index_dir/graph``, then the vector
+        index under ``index_dir``. The flat index's ``save`` is not ported
+        yet and raises (ROADMAP Queue A item 7), after the graph is written;
+        an IVF index saves."""
+        if self.settings.index_dir:
+            self.graph.save(os.path.join(self.settings.index_dir, "graph"))
+            self.vector_index.save(self.settings.index_dir)
 
     def warmup(self) -> None:
         """Run the serving shapes once (top-k widths, tier-group plans, Q and
@@ -101,6 +173,12 @@ class RagFinEngine:
             for text in ("warmup " * 96, "warmup " * max_len):
                 for reps in (1, 8, 64):
                     embedder.encode_texts([text] * reps)
+        if self.graph.stats().get("total_facts", 0) and self.graph.entities:
+            self.graph.match(
+                quarters=self.graph.quarters[:1],
+                names=self.graph.entities[:1],
+                limit=1,
+            )
 
     def close(self) -> None:
         """Stop the batcher's collector thread (it keeps the index reachable)."""
@@ -120,7 +198,9 @@ class RagFinEngine:
                 else str(self.vector_index.dtype).replace("torch.", ""),
                 "device": str(self.vector_index.device),
             },
+            "graph": {"facts": self.graph.stats().get("total_facts", 0)},
             "provider": getattr(self.provider, "model_name", None) or "offline",
+            "extraction_model": self.graph_builder.current_model,
             "integrity_weight": self.settings.integrity_weight,
             "config_issues": issues,
         }
