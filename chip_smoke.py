@@ -2,8 +2,9 @@
 """Chip smoke for the PyTorch/CUDA port (ragfin_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py            # the full check, as a release gate
-    python3 chip_smoke.py --kernels  # phases 1, 2, 4 and 6 only (build, kernels alone)
+    python3 chip_smoke.py --kernels  # phases 1, 2, 4, 6 and 7 only (build, kernels alone)
     python3 chip_smoke.py --graph    # phases 1, 4 and 5 only (build, first-k, graph store)
+    python3 chip_smoke.py --sweep    # also the IVF grid-rule sweep of phase 6
 
 Phases (any failure exits nonzero, and no phase carries on past one):
 
@@ -54,8 +55,36 @@ Phases (any failure exits nonzero, and no phase carries on past one):
    nprobe 32: the pruned kernel against its plain version for f32 "exact",
    bf16 "fast" (within 1e-5, ids equal outside tie bands) and int8
    (bitwise), and at nprobe = n_cells against the exact fused tier; timed
-   beside a gather of the probed cells + torch.matmul + torch.topk. The
-   wrapper's grid rule (blocks per probed cell) is timed against fixed values.
+   beside a gather of the probed cells + torch.matmul + torch.topk. With
+   --sweep the wrapper's grid rule (blocks per probed cell) is timed against
+   fixed values.
+7. Ceiling kernel alone (ops/ceiling.py, pass 1 of the fused kernels without
+   the selection): at N = 1,000,000 every stage of the three probe families
+   (bf16 Q = 128 block_n 2048 flat and tile-major; bf16 Q = 64 block_n 6144
+   with the n_valid mask and an arg-max tie built on purpose; int8 Q = 1024
+   block_n 8192) against ceiling_plain on the card: int stages bitwise, float
+   stages within 1e-4 of the largest sum; the dma stage's loads are checked
+   by the XOR of the loaded words; then timed. The same for the bench path's
+   own call (bf16 Q = 64, N = 1,000,000 not padded, block_n the fused kernel's
+   chunk), which phase 9 counts. Phase 2 prints the stage ladder (block read,
+   + product, + mask, + row max, + arg-max, pass 1, whole kernel) for f32,
+   bf16 and int8 at Q = 64 on its own corpus (n_valid = N - 63, ragged last
+   tile), every stage held against ceiling_plain before it is timed.
+8. Served: a chunk snapshot of 131,072 generated filings on disk, the engine
+   from Settings(chunks_snapshot, index_dir) through get_engine, launch() of
+   all seven services on ephemeral ports, and over HTTP /health on each,
+   /search and /answer on the vector adapter (MCP client and server between),
+   tools/call for search_vectors, answer_question, hybrid_query,
+   query_financial_graph and compare_quarters, /api/v1/query and /api/v1/build
+   on the graph service, with the fused top-k and first-k counters at 0 just
+   before the first request and read just after the last; only then the same
+   calls on the engine object, which must give equal results. Then persist,
+   reset_engine, a second engine from index_dir alone, the same requests,
+   equal hits.
+9. Command line: python -m ragfin_tpu_torch.cli chunk / build-index / query
+   --mode hybrid as subprocesses on a small generated extract_data tree, then
+   the bench subcommand (bench_torch.py, BENCH_N = 1,000,000, BENCH_Q = 64) in
+   this process with the ceiling kernel's counter at 0 just before.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 kernel table as JSON.
@@ -107,20 +136,11 @@ def bound(q: int, n: int, k: int, corpus: str, ops_type: str) -> tuple[float, st
 
 
 def time_ms(torch, fn, runs: int = 20, warmup: int = 3) -> float:
-    """Median of ``runs`` CUDA-event timings of fn() after warm-up."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    """Median of ``runs`` CUDA-event timings of fn() after warm-up (the
+    port's one timer, utils/profiling.device_ms)."""
+    from ragfin_tpu_torch.utils.profiling import device_ms
+
+    return device_ms(fn, runs=runs, warmup=warmup)
 
 
 def ids_agree(ref_s, ref_i, got_i, tol: float) -> bool:
@@ -262,9 +282,201 @@ def kernel_phase(torch, topk) -> dict:
             dense_ms = time_ms(torch, lambda: topk.cosine_topk_dense(q, c, 64))
             line.append(f"Q={q_n} fused {fused_ms:.4f} ms dense {dense_ms:.4f} ms")
         print(f"threshold N={n_cut} k=64: " + "; ".join(line), flush=True)
+    # Stage ladder: pass 1 of each fused kernel with the selection replaced
+    # by the ceiling stages (same grid: the probe tile is the kernel's chunk).
+    from ragfin_tpu_torch.ops.quantize import quantize_queries
+
+    q64 = q_all[:64].contiguous()
+    ladders = {}
+    for label, corpus, scales, probe_q, run in (
+        ("f32", ct32, None, q64, lambda: f32(q64, ct32, 64, n_valid=n_valid)),
+        ("bf16", ct16, None, q64.to(torch.bfloat16),
+         lambda: f32(q64, ct16, 64, n_valid=n_valid, precision="fast")),
+        ("int8", ct8, sc8, quantize_queries(q64)[0].contiguous(),
+         lambda: i8(q64, ct8, sc8, 70, n_valid=n_valid)),
+    ):
+        ladders[label] = stage_ladder(torch, label, probe_q, corpus, scales, n_valid, run)
     f32.launches = 0
     i8.launches = 0
-    return {"rows": rows, "errs": errs, "n": n}
+    return {"rows": rows, "errs": errs, "n": n, "ladders": ladders}
+
+
+CEIL_RTOL = 1e-4
+
+
+def ceiling_check(torch, label, q, corpus, stage, block_n, n_valid, scales) -> tuple[float, float]:
+    """One ceiling stage on the card against ceiling_plain on the same
+    inputs: bitwise where the sums are integers, else |difference| <=
+    CEIL_RTOL * the largest |sum| of the call (the kernel sums f32 products
+    in another order, inside a dot product and over tiles; the bound is
+    relative to the size of the sums, not to a row whose terms happen to
+    cancel). Returns (largest |difference|, largest |sum|)."""
+    from ragfin_tpu_torch.ops import ceiling as C
+
+    got = C.ceiling(q, corpus, stage, block_n, n_valid=n_valid, scales=scales)
+    torch.cuda.synchronize()
+    want = C.ceiling_plain(q, corpus, stage, block_n, n_valid=n_valid, scales=scales)
+    if got.shape != (q.shape[0],) or not torch.isfinite(got).all():
+        raise AssertionError(f"ceiling {label} {stage}: bad output")
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    if C.is_exact(corpus.dtype, stage):
+        if not torch.equal(got, want):
+            raise AssertionError(f"ceiling {label} {stage}: not bitwise equal to plain")
+    elif err > CEIL_RTOL * scale:
+        raise AssertionError(f"ceiling {label} {stage}: |err| {err} > {CEIL_RTOL} * {scale}")
+    return err, scale
+
+
+def stage_ladder(torch, label, probe_q, corpus, scales, n_valid, run) -> dict:
+    """On one corpus, every ceiling stage (block read, + product, + mask,
+    + row max, + arg-max) first held against ceiling_plain at the fused
+    kernel's own grid (block_n = its chunk, the last 128-column tile ragged),
+    then timed beside pass 1 of the fused kernel (its device time under
+    torch.profiler) and the whole fused call."""
+    from ragfin_tpu_torch.ops import ceiling as C
+
+    q_n, n = probe_q.shape[0], corpus.shape[-1]
+    block_n = C.fused_chunk_columns(q_n, n, corpus.device)
+    stages = C.ladder_stages(corpus.dtype)
+    err = max(ceiling_check(torch, f"ladder {label}", probe_q, corpus, stage, block_n,
+                            n_valid, scales)[0] for stage in stages)
+    out = {
+        stage: time_ms(torch, lambda: C.ceiling(probe_q, corpus, stage, block_n,
+                                                n_valid=n_valid, scales=scales), runs=10)
+        for stage in stages
+    }
+    parts, _ = profiled(torch, run, 5)
+    out["pass1"] = next((ms for ms, name in parts if "pass1" in name), None)
+    if out["pass1"] is None:
+        raise AssertionError(f"no pass-1 kernel in the profile of {label}: {parts[:4]}")
+    out["kernel"] = time_ms(torch, run, runs=10)
+    C.ceiling.launches = 0
+    print(f"stage ladder {label} Q={q_n} N={n} n_valid={n_valid} block_n={block_n} "
+          f"(every stage equal to plain, max |err| {err:.3g}): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in out.items()), flush=True)
+    out["max_abs_err"] = err
+    return out
+
+
+# --- phase 7: the ceiling kernel alone ---------------------------------------
+
+
+def ceiling_bound(q: int, n: int, corpus: str, stage: str) -> tuple[float, str]:
+    """Least time for one ceiling call: the larger of its bytes (corpus, the
+    int8 scales where the stage dequantises, queries, output, each once) over
+    the memory rate and, from the product on, 2*Q*N*D operations over the peak
+    rate of the corpus type."""
+    item = {"float32": 4, "bfloat16": 2, "int8": 1}[corpus]
+    scales = 4 * n if corpus == "int8" and stage not in ("dma", "mmint", "rowmaxint") else 0
+    nbytes = D * n * item + scales + (0 if stage == "dma" else q * D * item) + 4 * q
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = 0.0 if stage == "dma" else 2.0 * q * n * D / PEAK_OPS[corpus] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ceiling_phase(torch, topk) -> dict:
+    """Every stage of the TPU probes' three families, and of the bench
+    path's shape, at N = 1,000,000 against ceiling_plain on the card
+    (ceiling_check), then timed."""
+    from ragfin_tpu_torch.ops import ceiling as C
+    from ragfin_tpu_torch.ops.quantize import quantize_corpus_t
+    from ragfin_tpu_torch.utils.synthetic import normal_bf16, unit_corpus_t, unit_queries
+
+    dev = torch.device("cuda")
+    n = N_KERNEL
+    results, max_err = {}, 0.0
+
+    def run_family(family, q, corpus, scales, block_n, n_valid, stages, lib_stage=None):
+        nonlocal max_err
+        dtype = str(corpus.dtype).replace("torch.", "")
+        width = corpus.shape[-1] * (corpus.shape[0] if corpus.dim() == 3 else 1)
+        for stage in stages:
+            call = lambda: C.ceiling(q, corpus, stage, block_n, n_valid=n_valid, scales=scales)
+            plain = lambda: C.ceiling_plain(q, corpus, stage, block_n, n_valid=n_valid, scales=scales)
+            err, scale = ceiling_check(torch, family, q, corpus, stage, block_n, n_valid, scales)
+            exact = C.is_exact(corpus.dtype, stage)
+            max_err = max(max_err, err)
+            ms = time_ms(torch, call)
+            plain_ms = time_ms(torch, plain, runs=3, warmup=1)
+            lib_ms = None
+            if stage == lib_stage:
+                flat = topk._untile(corpus)
+                lib_ms = time_ms(torch, lambda: torch.matmul(q, flat))
+            b_ms, b_by = ceiling_bound(q.shape[0], width, dtype, stage)
+            results[(family, stage)] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                            bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+            read_gbs = corpus.numel() * corpus.element_size() / ms / 1e6
+            print(f"kernel ceiling {family} {stage}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"library {'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound {b_ms:.4f} ms "
+                  f"({b_by}), {b_ms / ms:.1%} of bound, one corpus read per call = "
+                  f"{read_gbs:.0f} GB/s, |err| {err:.3g} of {scale:.3g}"
+                  f"{' (bitwise)' if exact else ''}", flush=True)
+
+    def read_check(family, q, corpus, block_n):
+        # The dma stage's loads are live: the XOR of the words its blocks
+        # loaded is the XOR of the corpus, and it cannot beat the memory.
+        _, seen = C.ceiling(q, corpus, "dma", block_n, read_check=True)
+        if seen != C.corpus_xor(corpus):
+            raise AssertionError(f"ceiling {family}: the dma stage did not read the whole corpus")
+        gbs = corpus.numel() * corpus.element_size() / results[(family, "dma")]["ms"] / 1e6
+        if gbs > PEAK_BYTES / 1e9:
+            raise AssertionError(f"ceiling {family}: dma reads {gbs:.0f} GB/s, above the card's rate")
+        print(f"ceiling {family}: dma loads checked (XOR of loaded words equals the corpus's)",
+              flush=True)
+
+    # ceiling_parts_1m / ceiling_1m / ceiling_tiled_1m: Q = 128, block_n 2048.
+    bn = 2048
+    ct = normal_bf16((D, -(-n // bn) * bn), SEED + 7, dev)
+    q = normal_bf16((128, D), SEED + 8, dev)
+    run_family("bf16 Q=128 bn=2048 flat", q, ct, None, bn, None, ("dma", "matmul", "rowmax"))
+    read_check("bf16 Q=128 bn=2048 flat", q, ct, bn)
+    tiles = topk.tile_corpus_t(ct, bn)
+    run_family("bf16 Q=128 bn=2048 tile-major", q, tiles, None, None, None, ("dma", "rowmax"))
+    read_check("bf16 Q=128 bn=2048 tile-major", q, tiles, None)
+    del ct, tiles
+    # ceiling_q64: Q = 64, block_n 6144, n_valid mask; an arg-max tie built
+    # on purpose: three equal columns, far above every other score, in two
+    # 128-column sub-tiles of one probe tile.
+    bn = 6144
+    ct = normal_bf16((D, -(-n // bn) * bn), SEED + 9, dev)
+    q = normal_bf16((64, D), SEED + 10, dev)
+    q[:, 0] = q[:, 0].abs() + 1
+    for col in (5 * bn + 130, 5 * bn + 135, 5 * bn + 4000):
+        ct[:, col] = 0
+        ct[0, col] = 1000.0
+    run_family("bf16 Q=64 bn=6144", q, ct, None, bn, n, ("mm", "mask", "rowmax", "prologue"),
+               lib_stage="mm")
+    # The tied tile alone: prologue - rowmax is its arg-maximum, which must
+    # be the lowest of the three equal columns, for every row.
+    tied = ct[:, 5 * bn : 6 * bn].contiguous()
+    arg = C.ceiling(q, tied, "prologue", bn) - C.ceiling(q, tied, "rowmax", bn)
+    if float((arg - 130).abs().max()) > 0.01:
+        raise AssertionError(f"ceiling prologue: arg-max of a tie {arg.tolist()[:4]} != 130 "
+                             "(a tie must take the lowest column)")
+    print("ceiling prologue: an arg-max tie takes the lowest column", flush=True)
+    del ct
+    # ceiling_q1024: int8, Q = 1024, block_n 8192.
+    bn = 8192
+    c8, cs = quantize_corpus_t(normal_bf16((D, -(-n // bn) * bn), SEED + 11, dev).float())
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    q8 = torch.randint(-127, 127, (1024, D), generator=gen, device=dev, dtype=torch.int8)
+    run_family("int8 Q=1024 bn=8192", q8, c8, cs, bn, n,
+               ("dma", "mmint", "rowmaxint", "mm", "rowmax", "prologue"))
+    read_check("int8 Q=1024 bn=8192", q8, c8, bn)
+    del c8, cs, q8
+    # The bench path's call (bench_torch.py at BENCH_Q = 64, bf16, which phase
+    # 9 drives and counts): its corpus and queries, N = 1,000,000 not padded,
+    # so the last 128-column tile is ragged, n_valid = N, block_n the fused
+    # kernel's chunk.
+    ct = unit_corpus_t(n, seed=0, device=dev, d=D)
+    q = unit_queries((64, D), seed=1, device=dev).to(torch.bfloat16)
+    bn = C.fused_chunk_columns(64, n, dev)
+    family = f"bf16 Q=64 bn={bn} bench shape"
+    run_family(family, q, ct, None, bn, n, C.ladder_stages(ct.dtype))
+    read_check(family, q, ct, bn)
+    del ct
+    C.ceiling.launches = 0
+    return {"rows": results, "max_abs_err": max_err, "n": n}
 
 
 def profiled(torch, fn, reps: int) -> tuple[list[tuple[float, str]], float]:
@@ -489,7 +701,7 @@ def ivf_bound(qp: int, nprobe: int, cell: int, corpus: str, ops_type: str) -> tu
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def ivf_phase(torch, topk, ivf) -> dict:
+def ivf_phase(torch, topk, ivf, sweep: bool = False) -> dict:
     import numpy as np
 
     from ragfin_tpu_torch.ops.quantize import quantize_corpus_t
@@ -580,27 +792,28 @@ def ivf_phase(torch, topk, ivf) -> dict:
 
     # The grid rule of the wrapper (ivf._splits: blocks per probed cell)
     # against fixed values: equal outputs, and the time of each.
-    rule = ivf._splits
-    try:
-        for label, index, precision in (("f32 exact", idx32, "exact"), ("int8", idx8, "fast")):
-            for q_n in (1, 8, 64):
-                qin, qs, probe, _ = ivf.stage_queries(q_all[:q_n].contiguous(), index, IVF_NPROBE,
-                                                      IVF_BLOCK_Q, precision)
-                args = (qin, qs, index.cells, index.scales, probe, index.n_valid, IVF_K, IVF_BLOCK_Q)
-                chosen = rule(qin.shape[0] // 8, IVF_NPROBE, IVF_CELL // 128, dev)
-                want = ivf.pruned_topk(*args)
-                line = []
-                for fixed in (1, 2, 4, 8, 16):
-                    ivf._splits = lambda *a, fixed=fixed: fixed
-                    got = ivf.pruned_topk(*args)
-                    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-                        raise AssertionError(f"IVF {label} Q={q_n}: splits={fixed} gives another result")
-                    line.append(f"{fixed}: {time_ms(torch, lambda: ivf.pruned_topk(*args)):.4f} ms")
-                ivf._splits = rule
-                print(f"ivf_topk[{label}] Q={q_n} by splits (the wrapper picks {chosen}): "
-                      + ", ".join(line), flush=True)
-    finally:
-        ivf._splits = rule
+    if sweep:
+        rule = ivf._splits
+        try:
+            for label, index, precision in (("f32 exact", idx32, "exact"), ("int8", idx8, "fast")):
+                for q_n in (1, 8, 64):
+                    qin, qs, probe, _ = ivf.stage_queries(q_all[:q_n].contiguous(), index, IVF_NPROBE,
+                                                          IVF_BLOCK_Q, precision)
+                    args = (qin, qs, index.cells, index.scales, probe, index.n_valid, IVF_K, IVF_BLOCK_Q)
+                    chosen = rule(qin.shape[0] // 8, IVF_NPROBE, IVF_CELL // 128, dev)
+                    want = ivf.pruned_topk(*args)
+                    line = []
+                    for fixed in (1, 2, 4, 8, 16):
+                        ivf._splits = lambda *a, fixed=fixed: fixed
+                        got = ivf.pruned_topk(*args)
+                        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                            raise AssertionError(f"IVF {label} Q={q_n}: splits={fixed} gives another result")
+                        line.append(f"{fixed}: {time_ms(torch, lambda: ivf.pruned_topk(*args)):.4f} ms")
+                    ivf._splits = rule
+                    print(f"ivf_topk[{label}] Q={q_n} by splits (the wrapper picks {chosen}): "
+                          + ", ".join(line), flush=True)
+        finally:
+            ivf._splits = rule
 
     # Full probe equals the exact fused tier over the same vectors.
     q = q_all[:8].contiguous()
@@ -1004,15 +1217,297 @@ def main_path_phase(torch, topk) -> dict:
     launches["fused_topk_int8"] = launches8
     launches["first_k"] = hybrid_launches["first_k"]
     launches["ivf_topk"] = ivf_launches
-    return {"launches": launches, "p50_ms": p50, "ivf_engine_err": ivf_err}
+    return {"launches": launches, "p50_ms": p50, "p50_alone_ms": p50_alone,
+            "ivf_engine_err": ivf_err}
+
+
+# --- phase 8: the services over HTTP -----------------------------------------
+
+
+def http_json(method: str, port: int, path: str, body=None):
+    """(status, parsed JSON body) of one request to a local service; talks to
+    the socket directly (no proxy from the environment)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        data = None if body is None else json.dumps(body).encode()
+        conn.request(method, path, body=data, headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read().decode() or "null")
+    finally:
+        conn.close()
+
+
+def served_phase(torch, topk, graph_index, work_dir: str) -> dict:
+    """The normal way in: a chunk snapshot on disk, the engine from Settings
+    through get_engine, all seven services on ephemeral ports, requests over
+    HTTP; then persist, reset, and a second engine from the saved index."""
+    import numpy as np
+
+    from ragfin_tpu_torch.config.settings import Settings, get_config
+    from ragfin_tpu_torch.data.loader import save_chunk_snapshot
+    from ragfin_tpu_torch.eval.distractors import generate_distractors
+    from ragfin_tpu_torch.serving import main as serving_main
+    from ragfin_tpu_torch.serving.engine import get_engine, reset_engine
+    from ragfin_tpu_torch.serving.mcp_client import MCPClient
+
+    chunks = generate_distractors(N_MAIN, seed=SEED + 1)
+    snapshot = os.path.join(work_dir, "chunks.json")
+    index_dir = os.path.join(work_dir, "index")
+    t0 = time.perf_counter()
+    save_chunk_snapshot(chunks, snapshot)
+    settings = Settings(embed_backend="trained", chunks_snapshot=snapshot, index_dir=index_dir,
+                        data_dir=os.path.join(work_dir, "no_extract_data"))
+    reset_engine()
+    engine = get_engine(settings=settings)
+    torch.cuda.synchronize()
+    start_s = time.perf_counter() - t0
+    if engine.vector_index.n != N_MAIN or len(engine.chunks) != N_MAIN:
+        raise AssertionError(f"served engine loaded {engine.vector_index.n} chunks")
+    built = engine.graph_builder.build_from_vector_index(engine.vector_index)
+    facts = engine.graph.stats()["total_facts"]
+    if facts < graph_index.FIRST_K_MIN_ROWS:
+        raise AssertionError(f"graph store has {facts} facts, below the first-k route")
+    ports = {name: 0 for name in serving_main.ALL_SERVICES}
+    get_config.cache_clear()
+    servers = serving_main.launch(ports=ports, engine=engine)
+    if set(servers) != set(serving_main.ALL_SERVICES):
+        raise AssertionError(f"launched {sorted(servers)}")
+    port = {name: srv.port for name, srv in servers.items()}
+    print(f"served: snapshot of {N_MAIN} chunks written, engine started from Settings in "
+          f"{start_s:.1f} s, graph of {facts} facts ({built.get('chunks_processed')} chunks), "
+          f"7 services on ports {sorted(port.values())}", flush=True)
+
+    def tool(service: str, name: str, arguments: dict):
+        client = MCPClient(f"http://127.0.0.1:{port[service]}")
+        return client.call_tool(name, arguments)
+
+    def must(status_body, what: str):
+        status, body = status_body
+        if status != 200:
+            raise AssertionError(f"{what}: HTTP {status} {str(body)[:200]}")
+        return body
+
+    def wire() -> dict:
+        """Every request of the phase, over HTTP only; what came back, by name."""
+        out = {}
+        for name in ("entity_service", "graph_service", "vector_adapter", "graph_adapter"):
+            out[f"health/{name}"] = must(http_json("GET", port[name], "/health"), f"/health {name}")
+        for name in ("vector_mcp", "graph_mcp", "graph_mcp_monolith"):
+            out[f"health/{name}"] = tool(name, "health_check", {})
+        lat = []
+        for q in WIRE_QUESTIONS:
+            t = time.perf_counter()
+            out[f"search/{q}"] = must(http_json("POST", port["vector_adapter"], "/search",
+                                                {"query": q, "top_k": 3}), "/search")
+            lat.append(time.perf_counter() - t)
+            out[f"answer/{q}"] = must(http_json("POST", port["vector_adapter"], "/answer",
+                                                {"question": q, "top_k": 3}), "/answer")
+            out[f"search_vectors/{q}"] = tool("vector_mcp", "search_vectors", {"query": q, "top_k": 3})
+            out[f"answer_question/{q}"] = tool("vector_mcp", "answer_question",
+                                               {"question": q, "top_k": 3})
+            out[f"hybrid_query/{q}"] = tool("graph_mcp_monolith", "hybrid_query", {"question": q})
+        for q in WIRE_GRAPH_QUESTIONS:
+            out[f"query_financial_graph/{q}"] = tool("graph_mcp", "query_financial_graph",
+                                                     {"question": q, "limit": 10})
+            out[f"api_query/{q}"] = must(http_json("POST", port["graph_service"], "/api/v1/query",
+                                                   {"question": q, "limit": 10}), "/api/v1/query")
+        out["compare_quarters"] = tool("graph_mcp_monolith", "compare_quarters",
+                                       {"quarter1": "Q1_FY2024", "quarter2": "Q2_FY2024"})
+        out["wire_p50_ms"] = statistics.median(lat) * 1e3
+        return out
+
+    def direct(eng, out: dict) -> None:
+        """The same calls on the engine object, held against what came back
+        over the wire."""
+        t_in = []
+        for q in WIRE_QUESTIONS:
+            t = time.perf_counter()
+            hits = eng.vector_rag.search(q, 3)
+            t_in.append(time.perf_counter() - t)
+            for got in (out[f"search/{q}"]["results"], out[f"search_vectors/{q}"]["results"]):
+                if not hits_agree(hits, got, BATCH_TOL):
+                    raise AssertionError(f"hits over the wire differ from the engine's for {q!r}")
+            answered = asyncio.run(eng.vector_rag.search_and_answer(q, 3))
+            for got in (out[f"answer/{q}"], out[f"answer_question/{q}"]):
+                if got.get("answer") != answered.get("answer") or not got.get("answer"):
+                    raise AssertionError(f"answer over the wire differs for {q!r}")
+            hyb = asyncio.run(eng.hybrid.hybrid_query(q))
+            if [c["id"] for c in out[f"hybrid_query/{q}"]["chunks"]] != [c["id"] for c in hyb["chunks"]]:
+                raise AssertionError(f"hybrid chunks over the wire differ for {q!r}")
+        for q in WIRE_GRAPH_QUESTIONS:
+            rows = asyncio.run(eng.graph_builder.query_engine.query(q, 10))["results"]
+            for key in (f"query_financial_graph/{q}", f"api_query/{q}"):
+                if out[key]["results"] != json.loads(json.dumps(rows, default=str)) or not rows:
+                    raise AssertionError(f"graph results over the wire differ for {q!r}")
+        out["in_process_p50_ms"] = statistics.median(t_in) * 1e3
+
+    # ---- the driven run: counters 0 just before the HTTP requests, read ----
+    # ---- just after them and before any call on the engine object ---------
+    topk.cosine_topk_fused.launches = 0
+    graph_index.masked_first_k.launches = 0
+    first = wire()
+    torch.cuda.synchronize()
+    launches = {"fused_topk": topk.cosine_topk_fused.launches,
+                "first_k": graph_index.masked_first_k.launches}
+    # -----------------------------------------------------------------------
+    direct(engine, first)
+    if min(launches.values()) < 1:
+        raise AssertionError(f"the HTTP requests did not reach the kernels: {launches}")
+    for name in ("vector_adapter", "vector_mcp", "graph_mcp_monolith"):
+        h = first[f"health/{name}"]
+        if h["status"] != "healthy" or h["vector_index"]["entities"] != N_MAIN or \
+                "integrity_active" not in h:
+            raise AssertionError(f"/health of {name}: {h}")
+    cq = first["compare_quarters"]
+    if not cq.get("success") or "metrics" not in cq or "segments" not in cq:
+        raise AssertionError(f"compare_quarters: {str(cq)[:300]}")
+    # A small build through the graph service (its own dataset id).
+    body = must(http_json("POST", port["graph_service"], "/api/v1/build", {
+        "chunks": [c.to_financial_chunk().model_dump() for c in chunks[:8]],
+        "dataset_id": "wire_build"}), "/api/v1/build")
+    if not body["success"] or body["chunks_processed"] != 8 or body["entities_created"] < 8:
+        raise AssertionError(f"/api/v1/build: {body}")
+    engine.graph.clear_data("wire_build")
+    print(f"served: {len(first) - 2} responses over HTTP equal the engine's own; request p50 over "
+          f"the wire (/search through adapter, MCP client and MCP server) "
+          f"{first['wire_p50_ms']:.2f} ms, in process {first['in_process_p50_ms']:.2f} ms; "
+          f"launches during the HTTP requests alone {launches}", flush=True)
+
+    # ---- persist, reset, a second engine from index_dir alone -------------
+    t0 = time.perf_counter()
+    engine.persist()
+    persist_s = time.perf_counter() - t0
+    for srv in servers.values():
+        srv.stop()
+    reset_engine()
+    os.remove(snapshot)
+    t0 = time.perf_counter()
+    again = get_engine(settings=settings)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if again is engine or again.chunks or again.vector_index.n != N_MAIN or \
+            again.graph.stats()["total_facts"] != facts:
+        raise AssertionError("the second engine did not come from the saved index")
+    servers = serving_main.launch(ports=ports, engine=again)
+    port = {name: srv.port for name, srv in servers.items()}
+    try:
+        second = wire()
+        direct(again, second)
+    finally:
+        for srv in servers.values():
+            srv.stop()
+        reset_engine()
+    for key, value in first.items():
+        if key.startswith(("search/", "search_vectors/")):
+            if not hits_agree(value["results"], second[key]["results"], F32_TOL):
+                raise AssertionError(f"{key}: hits differ after persist and reload")
+        elif key.startswith(("query_financial_graph/", "api_query/")):
+            if value["results"] != second[key]["results"]:
+                raise AssertionError(f"{key}: graph results differ after persist and reload")
+    print(f"served: persisted in {persist_s:.1f} s, second engine loaded from index_dir in "
+          f"{load_s:.1f} s (no chunks), same hits and graph results over HTTP", flush=True)
+    return {"launches": launches, "wire_p50_ms": first["wire_p50_ms"],
+            "in_process_p50_ms": first["in_process_p50_ms"]}
+
+
+WIRE_QUESTIONS = [
+    "What was the net profit?",
+    "What were total customer deposits and advances?",
+    "What was HDFC Bank's net profit in Q1 FY2024?",
+    "What was the basic EPS growth?",
+    "Which segment had the highest revenue?",
+    "What were the provisions and cost ratio?",
+]
+WIRE_GRAPH_QUESTIONS = [
+    "What was the net profit in Q1 FY2024?",
+    "How did net profit trend across all quarters of FY2024?",
+]
+
+
+# --- phase 9: the command line ------------------------------------------------
+
+
+def cli_phase(torch, work_dir: str, here: str) -> dict:
+    """build-index, query --mode hybrid and chunk as subprocesses on a small
+    generated extract_data tree; then ``bench`` through the CLI in this
+    process (BENCH_N = 1,000,000, BENCH_Q = 64), so that the ceiling kernel's
+    launches on the bench path are counted."""
+    import contextlib
+    import io
+
+    from ragfin_tpu_torch import cli
+    from ragfin_tpu_torch.eval.statements import write_extract_data
+    from ragfin_tpu_torch.ops import ceiling as C
+
+    data = write_extract_data(os.path.join(work_dir, "extract_data"), seed=SEED)
+    index_dir = os.path.join(work_dir, "cli_index")
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("RAGFIN_", "BENCH_"))}
+
+    def run(*argv) -> str:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "ragfin_tpu_torch.cli", *argv], cwd=here,
+                              env=env, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"cli {argv[0]} exited {proc.returncode}: {proc.stderr[-800:]}")
+        print(f"cli {argv[0]}: exit 0 in {time.perf_counter() - t0:.1f} s", flush=True)
+        return proc.stdout
+
+    out = run("chunk", "--data", data, "--out", os.path.join(work_dir, "cli_chunks.json"))
+    with open(os.path.join(work_dir, "cli_chunks.json")) as f:
+        if "wrote 16 chunks" not in out or len(json.load(f)) != 16:
+            raise AssertionError(f"cli chunk: {out!r}")
+    built = json.loads(run("build-index", "--data", data, "--out", index_dir).strip().splitlines()[-1])
+    if built["chunks"] != 16 or built["num_entities"] != 16 or built["graph_facts"] < 16 or \
+            not built["device"].startswith("cuda"):
+        raise AssertionError(f"cli build-index: {built}")
+    answer = json.loads(run("query", "What was the net profit in Q1 FY2024?", "--mode", "hybrid",
+                            "--data", data, "--index", index_dir))
+    if not answer.get("chunks") or "graph_results" not in answer:
+        raise AssertionError(f"cli query --mode hybrid: {str(answer)[:300]}")
+    print(f"cli: chunk, build-index ({built['graph_facts']} facts) and query --mode hybrid "
+          f"({len(answer['chunks'])} chunks) ran on the card", flush=True)
+
+    # ---- the bench path: counter 0 just before, read just after -----------
+    saved = {k: os.environ.get(k) for k in ("BENCH_N", "BENCH_Q", "BENCH_DTYPE", "BENCH_REPS")}
+    os.environ.update({"BENCH_Q": "64", "BENCH_DTYPE": "bf16", "BENCH_REPS": "8"})
+    C.ceiling.launches = 0
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            try:
+                code = cli.main(["bench", "--n", str(N_KERNEL)])
+            except SystemExit as e:
+                code = e.code
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None) if v is None else os.environ.__setitem__(k, v)
+    torch.cuda.synchronize()
+    launches = C.ceiling.launches
+    # -----------------------------------------------------------------------
+    text = buf.getvalue()
+    print(text, end="", flush=True)
+    lines = [json.loads(line) for line in text.strip().splitlines()]
+    if code not in (0, None) or len(lines) != 2:
+        raise AssertionError(f"cli bench exited {code} with {len(lines)} lines")
+    stages, result = lines
+    if set(result) < {"metric", "value", "unit", "vs_baseline"} or not result["value"] > 0 or \
+            "kernel" not in stages["ceiling_stages_ms"]:
+        raise AssertionError(f"cli bench: {lines}")
+    if launches < 1:
+        raise AssertionError("the bench path never launched the ceiling kernel")
+    return {"launches": launches, "bench": result, "stages": stages}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels", action="store_true",
-                    help="build, check and time the kernels alone (phases 1, 2, 4 and 6)")
+                    help="build, check and time the kernels alone (phases 1, 2, 4, 6 and 7)")
     ap.add_argument("--graph", action="store_true",
                     help="build, first-k alone and the graph store at scale (phases 1, 4 and 5)")
+    ap.add_argument("--sweep", action="store_true",
+                    help="also time the IVF wrapper's grid rule against fixed splits (phase 6)")
     args = ap.parse_args()
     try:
         import torch
@@ -1028,11 +1523,9 @@ def main() -> int:
     except ImportError as e:
         return fail(f"the ragfin_tpu_torch package is not beside this script ({e})")
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip()
-    print(smi, flush=True)
+    from ragfin_tpu_torch.utils.profiling import card
+
+    print(card(), flush=True)
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
@@ -1048,11 +1541,20 @@ def main() -> int:
         graph_scale_phase(torch, graph_index)
         return 0
     kern = kernel_phase(torch, topk)
-    ivf_alone = ivf_phase(torch, topk, ivf)
+    ceil = ceiling_phase(torch, topk)
+    ivf_alone = ivf_phase(torch, topk, ivf, sweep=args.sweep)
     if args.kernels:
         return 0
     graph_scale_phase(torch, graph_index)
     main_path = main_path_phase(torch, topk)
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="ragfin_smoke_") as work_dir:
+        served = served_phase(torch, topk, graph_index, work_dir)
+        cli_run = cli_phase(torch, work_dir, here)
+    print(f"request p50: over the wire {served['wire_p50_ms']:.2f} ms, in process "
+          f"{served['in_process_p50_ms']:.2f} ms (served engine), main path one at a time "
+          f"{main_path['p50_alone_ms']:.2f} ms", flush=True)
 
     rows = kern["rows"]
     table = []
@@ -1087,6 +1589,21 @@ def main() -> int:
         "replaces": "ragfin_tpu/index/graph_index.py:81",
         "launches": main_path["launches"]["first_k"],
         **first_k,
+    })
+    r = ceil["rows"][("bf16 Q=64 bn=6144", "mm")]
+    table.append({
+        "name": "ceiling", "route": "cuda", "source": "ragfin_tpu_torch/csrc/ceiling.cu",
+        "replaces": "scripts/kernel_probe.py:1080",
+        "launches": cli_run["launches"],
+        "max_abs_err": max([ceil["max_abs_err"]]
+                           + [ladder["max_abs_err"] for ladder in kern["ladders"].values()]),
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        "shape": {"stage": "mm", "Q": 64, "N": ceil["n"], "D": D, "block_n": 6144,
+                  "corpus": "bfloat16"},
+        "stages": {f"{family} {stage}": row for (family, stage), row in ceil["rows"].items()},
+        "ladders_q64": kern["ladders"],
+        "served_launches": served["launches"],
     })
     for row in table:
         if row["launches"] < 1:

@@ -6,3 +6,4 @@ and never imports JAX or anything of ``ragfin_tpu``. Entry points run on the
 CUDA card unless the caller passes ``device="cpu"``; the hand-written
 Hopper kernels live in ``csrc/`` and are built on first use.
 """
+__version__ = "0.1.0"

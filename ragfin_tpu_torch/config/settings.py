@@ -1,8 +1,11 @@
 """Environment-driven configuration of the port.
 
 Counterpart of ``ragfin_tpu/config/settings.py``, cut to the fields the
-ported paths (vector, graph and hybrid retrieval, flat and IVF index) read. The environment variables and defaults are the JAX
-package's, so one ``.env`` configures both packages alike.
+ported paths (corpus loading, vector, graph and hybrid retrieval, flat and
+IVF index, the services) read. The environment variables and defaults are
+the JAX package's, so one ``.env`` configures both packages alike. One field
+is the port's own: ``device`` (``RAGFIN_DEVICE``, the counterpart of pinning
+``JAX_PLATFORMS``).
 """
 
 from __future__ import annotations
@@ -12,7 +15,7 @@ from dataclasses import dataclass, field
 from functools import lru_cache
 from typing import Optional
 
-from .constants import SUPPORTED_MODELS
+from .constants import PORTS, SUPPORTED_MODELS
 
 
 def load_dotenv(path: str = ".env") -> None:
@@ -49,7 +52,14 @@ class Settings:
     groq_api_key: Optional[str] = None
     ollama_base_url: str = "http://localhost:11434"
 
+    # Data locations
+    data_dir: str = "extract_data"
+    chunks_snapshot: Optional[str] = None
     index_dir: str = ".ragfin_index"
+
+    # None = the CUDA card (no card raises); "cpu" runs the port on the CPU.
+    device: Optional[str] = None
+
     default_top_k: int = 3
     embed_backend: str = field(default_factory=lambda: _default_backend())
     trained_checkpoint: Optional[str] = None  # None -> packaged default dir
@@ -60,6 +70,8 @@ class Settings:
     index_type: str = "flat"
     ivf_nprobe: int = 32
     integrity_weight: float = 0.0
+    # Serving ports (reference registry)
+    ports: dict = field(default_factory=lambda: dict(PORTS))
     batch_queries: bool = True  # dynamic micro-batching on the query path
 
     def get_api_key_for_model(self, model_name: str) -> Optional[str]:
@@ -115,7 +127,10 @@ def _from_env() -> Settings:
         openai_api_key=env.get("OPENAI_API_KEY"),
         groq_api_key=env.get("GROQ_API_KEY"),
         ollama_base_url=env.get("OLLAMA_BASE_URL", "http://localhost:11434"),
+        data_dir=env.get("RAGFIN_DATA_DIR", "extract_data"),
+        chunks_snapshot=env.get("RAGFIN_CHUNKS_SNAPSHOT"),
         index_dir=env.get("RAGFIN_INDEX_DIR", ".ragfin_index"),
+        device=env.get("RAGFIN_DEVICE") or None,
         default_top_k=int(env.get("RAGFIN_TOP_K", "3")),
         embed_backend=env.get("RAGFIN_EMBED_BACKEND", _default_backend()),
         trained_checkpoint=env.get("RAGFIN_TRAINED_CHECKPOINT"),
@@ -130,3 +145,10 @@ def _from_env() -> Settings:
 @lru_cache(maxsize=1)
 def get_config() -> Settings:
     return _from_env()
+
+
+def switch_default_model(model_name: str) -> Settings:
+    """Runtime model switch via env + cache clear."""
+    os.environ["RAGFIN_MODEL"] = model_name
+    get_config.cache_clear()
+    return get_config()

@@ -1,8 +1,10 @@
 // Pass 1 of the fused cosine top-k kernels over an f32 or bf16 corpus: score
 // a block's query rows against a run of kTN-column tiles and keep a running
 // top-k per row (see fused_topk.cu for the design). Shared by fused_topk.cu,
-// which walks a contiguous chunk of the corpus, and ivf_topk.cu, which
-// walks the cell a probe table names (PROBED).
+// which walks a contiguous chunk of the corpus, ivf_topk.cu, which walks the
+// cell a probe table names (PROBED), and ceiling.cu, which keeps the walk,
+// the loads and the product and puts a cheaper reduction in the selection's
+// place (STAGE; part_s then holds one partial sum per chunk and row).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -40,11 +42,16 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p, bool vec, int va
 
 constexpr int kLoads = kDK * kTN / 4 / kThreads;  // float4 per thread per slice
 
-template <typename T, int TQ, bool PROBED>
+__device__ __forceinline__ unsigned fold_bits(const float4& v) {
+  return __float_as_uint(v.x) ^ __float_as_uint(v.y) ^ __float_as_uint(v.z) ^
+         __float_as_uint(v.w);
+}
+
+template <typename T, int TQ, bool PROBED, int STAGE>
 __global__ void __launch_bounds__(kThreads)
 fused_topk_pass1(const float* __restrict__ q, int Q, int D, const T* __restrict__ ct,
                  long long ld, long long tile_stride, int bn, int n_phys, int limit, int k,
-                 int tiles_per_chunk, ProbeWalk walk, float* __restrict__ part_s,
+                 int tiles_per_chunk, ProbeWalk walk, CeilArgs ceil, float* __restrict__ part_s,
                  int* __restrict__ part_i) {
   constexpr int RQ = TQ / 8;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -95,6 +102,28 @@ fused_topk_pass1(const float* __restrict__ q, int Q, int D, const T* __restrict_
   if (steps > 0) fetch(0);
   __syncthreads();
 
+  if constexpr (STAGE == kCeilDma) {
+    // The loads of every slice, folded into a word the block may have to
+    // write; thread 0's first value of slice 0 is element (0, col0).
+    unsigned sink = 0;
+    float first_sum = 0.f;
+    for (int step = 0; step < steps; ++step) {
+      const int t = t_begin + step / n_slices;
+      if (tid == 0 && step % n_slices == 0 && t % ceil.block_tiles == 0) first_sum += pre[0].x;
+#pragma unroll
+      for (int it = 0; it < kLoads; ++it) sink ^= fold_bits(pre[it]);
+      if (step + 1 < steps) fetch(step + 1);
+    }
+    if (ceil.sink != nullptr)
+      ceil.sink[((long long)blockIdx.y * gridDim.x + blockIdx.x) * kThreads + tid] = sink;
+    if (tid == 0) tile[0] = first_sum;
+    __syncthreads();
+    for (int r = tid; r < rows; r += kThreads) part_s[(long long)chunk * Q + q0 + r] = tile[0];
+    return;
+  }
+
+  CeilRows<STAGE, RQ, float> ceil_rows;
+  if constexpr (STAGE != kStageSelect) ceil_rows.init();
   float acc[RQ][4];
   for (int step = 0; step < steps; ++step) {
     const int slice = step % n_slices;
@@ -151,27 +180,31 @@ fused_topk_pass1(const float* __restrict__ q, int Q, int D, const T* __restrict_
         *reinterpret_cast<float4*>(&tile[(ty * RQ + i) * kTN + tx * 4]) =
             make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
       __syncthreads();
-      select_tile(tile, S, I, k, rows, (t_begin + step / n_slices) * kTN, limit);
+      const int col0 = (t_begin + step / n_slices) * kTN;
+      if constexpr (STAGE == kStageSelect) select_tile(tile, S, I, k, rows, col0, limit);
+      else ceil_rows.tile(tile, rows, col0, limit, n_phys, ceil.block_tiles);
     }
     __syncthreads();
   }
-  store_partials(S, I, k, rows, q0, Q, chunk, part_s, part_i);
+  if constexpr (STAGE == kStageSelect) store_partials(S, I, k, rows, q0, Q, chunk, part_s, part_i);
+  else ceil_rows.store(rows, q0, Q, chunk, part_s);
 }
 
-template <typename T, int TQ, bool PROBED = false>
+template <typename T, int TQ, bool PROBED = false, int STAGE = kStageSelect>
 cudaError_t launch_pass1(const float* q, int Q, int D, const void* ct, long long ld,
                          long long tile_stride, int bn, int n_phys, int limit, int k,
                          int tiles_per_chunk, int n_chunks, float* part_s, int* part_i,
-                         cudaStream_t stream, ProbeWalk walk = ProbeWalk{}) {
+                         cudaStream_t stream, ProbeWalk walk = ProbeWalk{},
+                         CeilArgs ceil = CeilArgs{}) {
   const size_t smem = sizeof(float) * ((size_t)TQ * D + kDK * kTN + TQ * kTN) +
                       (size_t)TQ * k * (sizeof(float) + sizeof(int));
-  auto kernel = fused_topk_pass1<T, TQ, PROBED>;
+  auto kernel = fused_topk_pass1<T, TQ, PROBED, STAGE>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((Q + TQ - 1) / TQ, n_chunks);
   kernel<<<grid, kThreads, smem, stream>>>(q, Q, D, static_cast<const T*>(ct), ld, tile_stride,
-                                           bn, n_phys, limit, k, tiles_per_chunk, walk,
+                                           bn, n_phys, limit, k, tiles_per_chunk, walk, ceil,
                                            part_s, part_i);
   return cudaGetLastError();
 }

@@ -3,8 +3,13 @@
 // fused_topk_int8.cu, which walks a contiguous chunk of the corpus and
 // applies the per-row query scale in the merge, and ivf_topk.cu, which
 // walks the cell a probe table names and applies the row scale per tile,
-// before the column scale and before selection (PROBED).
+// before the column scale and before selection (PROBED), and ceiling.cu,
+// which keeps the walk, the loads and the __dp4a product and puts a cheaper
+// reduction in the selection's place (STAGE; part_s, or part_i for the
+// stages that stay in int32, then holds one partial sum per chunk and row).
 #pragma once
+
+#include <type_traits>
 
 #include "topk_common.cuh"
 
@@ -21,12 +26,12 @@ __device__ __forceinline__ uint32_t load_word(const int8_t* p, bool aligned, int
   return w;
 }
 
-template <int TQ, bool PROBED>
+template <int TQ, bool PROBED, int STAGE>
 __global__ void __launch_bounds__(kThreads)
 fused_topk_int8_pass1(const int8_t* __restrict__ q8, int Q, int D, const int8_t* __restrict__ ct,
                       const float* __restrict__ cscale, long long ld, long long tile_stride,
                       int bn, int n_phys, int limit, int k, int tiles_per_chunk, ProbeWalk walk,
-                      const float* __restrict__ qscale, float* __restrict__ part_s,
+                      CeilArgs ceil, const float* __restrict__ qscale, float* __restrict__ part_s,
                       int* __restrict__ part_i) {
   constexpr int RQ = TQ / 8;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -84,6 +89,32 @@ fused_topk_int8_pass1(const int8_t* __restrict__ q8, int Q, int D, const int8_t*
   if (steps > 0) fetch(0);
   __syncthreads();
 
+  if constexpr (STAGE == kCeilDma) {
+    // The loads of every slice, folded into a word the block may have to
+    // write; the low byte of thread 0's first word of slice 0 is element
+    // (0, col0).
+    unsigned sink = 0;
+    int first_sum = 0;
+    for (int step = 0; step < steps; ++step) {
+      const int t = t_begin + step / n_slices;
+      if (tid == 0 && step % n_slices == 0 && t % ceil.block_tiles == 0)
+        first_sum = wrap_add(first_sum, (int)(int8_t)(pre[0][0] & 0xffu));
+#pragma unroll
+      for (int it = 0; it < kTasks; ++it) sink ^= pre[it][0] ^ pre[it][1] ^ pre[it][2] ^ pre[it][3];
+      if (step + 1 < steps) fetch(step + 1);
+    }
+    if (ceil.sink != nullptr)
+      ceil.sink[((long long)blockIdx.y * gridDim.x + blockIdx.x) * kThreads + tid] = sink;
+    if (tid == 0) cs[0] = first_sum;
+    __syncthreads();
+    for (int r = tid; r < rows; r += kThreads) part_i[(long long)chunk * Q + q0 + r] = cs[0];
+    return;
+  }
+
+  constexpr bool kIntStage = STAGE == kCeilMmInt || STAGE == kCeilRowmaxInt;
+  using CeilV = std::conditional_t<kIntStage, int, float>;
+  CeilRows<STAGE, RQ, CeilV> ceil_rows;
+  if constexpr (STAGE != kStageSelect) ceil_rows.init();
   int acc[RQ][4];
   for (int step = 0; step < steps; ++step) {
     const int slice = step % n_slices;
@@ -127,7 +158,19 @@ fused_topk_int8_pass1(const int8_t* __restrict__ q8, int Q, int D, const int8_t*
         acc[i][3] = __dp4a(a, b.w, acc[i][3]);
       }
     }
-    if (slice == n_slices - 1) {
+    if constexpr (kIntStage) {
+      if (slice == n_slices - 1) {
+        // The raw int32 sums: no dequantisation, no f32 tile.
+        const int col0 = (t_begin + step / n_slices) * kTN;
+        int* itile = reinterpret_cast<int*>(tile);
+#pragma unroll
+        for (int i = 0; i < RQ; ++i)
+          *reinterpret_cast<int4*>(&itile[(ty * RQ + i) * kTN + tx * 4]) =
+              make_int4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+        __syncthreads();
+        ceil_rows.tile(itile, rows, col0, limit, n_phys, ceil.block_tiles);
+      }
+    } else if (slice == n_slices - 1) {
       const int col0 = (t_begin + step / n_slices) * kTN;
       float sc[4];
 #pragma unroll
@@ -154,29 +197,33 @@ fused_topk_int8_pass1(const int8_t* __restrict__ q8, int Q, int D, const int8_t*
             make_float4(v[0], v[1], v[2], v[3]);
       }
       __syncthreads();
-      select_tile(tile, S, I, k, rows, col0, limit);
+      if constexpr (STAGE == kStageSelect) select_tile(tile, S, I, k, rows, col0, limit);
+      else ceil_rows.tile(tile, rows, col0, limit, n_phys, ceil.block_tiles);
     }
     __syncthreads();
   }
-  store_partials(S, I, k, rows, q0, Q, chunk, part_s, part_i);
+  if constexpr (STAGE == kStageSelect) store_partials(S, I, k, rows, q0, Q, chunk, part_s, part_i);
+  else if constexpr (kIntStage) ceil_rows.store(rows, q0, Q, chunk, part_i);
+  else ceil_rows.store(rows, q0, Q, chunk, part_s);
 }
 
-template <int TQ, bool PROBED = false>
+template <int TQ, bool PROBED = false, int STAGE = kStageSelect>
 cudaError_t launch_pass1_int8(const int8_t* q8, int Q, int D, const int8_t* ct,
                               const float* cscale, long long ld, long long tile_stride, int bn,
                               int n_phys, int limit, int k, int tiles_per_chunk, int n_chunks,
                               float* part_s, int* part_i, cudaStream_t stream,
-                              ProbeWalk walk = ProbeWalk{}, const float* qscale = nullptr) {
+                              ProbeWalk walk = ProbeWalk{}, const float* qscale = nullptr,
+                              CeilArgs ceil = CeilArgs{}) {
   const size_t qwords = ((size_t)TQ * (D / 4) + 3) / 4 * 4;
   const size_t smem = sizeof(int) * (qwords + kPK * kTN) + sizeof(float) * TQ * kTN +
                       (size_t)TQ * k * (sizeof(float) + sizeof(int));
-  auto kernel = fused_topk_int8_pass1<TQ, PROBED>;
+  auto kernel = fused_topk_int8_pass1<TQ, PROBED, STAGE>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((Q + TQ - 1) / TQ, n_chunks);
   kernel<<<grid, kThreads, smem, stream>>>(q8, Q, D, ct, cscale, ld, tile_stride, bn, n_phys,
-                                           limit, k, tiles_per_chunk, walk, qscale, part_s,
+                                           limit, k, tiles_per_chunk, walk, ceil, qscale, part_s,
                                            part_i);
   return cudaGetLastError();
 }

@@ -1,6 +1,7 @@
 // Shared pieces of the fused cosine top-k kernels (fused_topk.cu,
 // fused_topk_int8.cu): the running top-k lists, the warp-wide insertion,
-// and the pass-2 merge of per-chunk partial lists.
+// and the pass-2 merge of per-chunk partial lists; and what the ceiling
+// probes (ceiling.cu) put in the selection's place.
 //
 // Order contract (ragfin_tpu/ops/topk.py): scores descending, the lower id
 // wins a tie, empty slots hold score -inf and id INT32_MAX. A -inf score
@@ -217,5 +218,125 @@ __device__ __forceinline__ int probed_tile(const ProbeWalk& w, int q0, int y,
   const int cell = w.probe[(long long)(q0 / w.block_q) * w.nprobe + j];
   return cell * w.tiles_per_cell + s * tiles_per_chunk;
 }
+
+// ---------------------------------------------------------------------------
+// Ceiling stages (ceiling.cu): pass 1 with the per-row list insertion
+// replaced by a cheaper reduction. A "probe tile" is block_tiles consecutive
+// kTN-column tiles; each query row sums one value per probe tile.
+//   kStageSelect     the real pass 1 (lists, select_tile)
+//   kCeilDma         loads only: element (0, first column) of the probe tile
+//   kCeilMm          product; score of the probe tile's first column, unmasked
+//   kCeilMask        the same with columns >= limit set to -inf
+//   kCeilRowmax      masked row maximum over the probe tile
+//   kCeilPrologue    masked row maximum + arg-maximum (lowest column on a
+//                    tie, within the probe tile) as f32
+//   kCeilMmInt / kCeilRowmaxInt   (int8 pass 1) the raw int32 sums, no
+//                    dequantisation; the mask value is -(2^31) + 1
+enum Stage : int {
+  kStageSelect = 0,
+  kCeilDma = 1,
+  kCeilMm = 2,
+  kCeilMask = 3,
+  kCeilRowmax = 4,
+  kCeilPrologue = 5,
+  kCeilMmInt = 6,
+  kCeilRowmaxInt = 7,
+};
+
+struct CeilArgs {
+  int block_tiles = 1;          // kTN tiles per probe tile; a chunk holds whole probe tiles
+  unsigned* sink = nullptr;     // dma: XOR of every word a thread loaded, [blocks, kThreads];
+                                // written only when non-null, so the loads cannot be dropped
+};
+
+__device__ __forceinline__ int wrap_add(int a, int b) {
+  return (int)((unsigned)a + (unsigned)b);
+}
+
+// Per-row sums of a ceiling stage, in the registers of the warp that owns
+// the rows (warp w: rows w, w + 8, ...; every lane holds the same values).
+// V is float, or int for the two int stages.
+template <int STAGE, int RQ, typename V>
+struct CeilRows {
+  V sum[RQ], best[RQ];
+  int arg[RQ];
+
+  __device__ __forceinline__ static V lowest() {
+    if constexpr (STAGE >= kCeilMmInt) return (V)(-2147483647);
+    else return (V)(-CUDART_INF_F);
+  }
+  __device__ __forceinline__ static V add(V a, V b) {
+    if constexpr (STAGE >= kCeilMmInt) return (V)wrap_add((int)a, (int)b);
+    else return a + b;
+  }
+
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int i = 0; i < RQ; ++i) {
+      sum[i] = (V)0;
+      best[i] = lowest();
+      arg[i] = 0;
+    }
+  }
+
+  // One scored [rows, kTN] tile in shared memory, columns col0..col0+kTN-1.
+  __device__ __forceinline__ void tile(const V* tile, int rows, int col0, int limit, int n_phys,
+                                       int block_tiles) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int sub = (col0 / kTN) % block_tiles;  // position inside the probe tile
+    const bool first = sub == 0;
+    const bool last = sub == block_tiles - 1 || col0 + kTN >= n_phys;
+#pragma unroll
+    for (int i = 0; i < RQ; ++i) {
+      const int r = warp + kWarps * i;
+      if (r >= rows) continue;
+      if constexpr (STAGE == kCeilMm || STAGE == kCeilMmInt) {
+        if (first) sum[i] = add(sum[i], tile[r * kTN]);
+      } else if constexpr (STAGE == kCeilMask) {
+        if (first) sum[i] = add(sum[i], col0 < limit ? tile[r * kTN] : lowest());
+      } else {
+        V m = lowest();
+        int a = 0;
+#pragma unroll
+        for (int c = 0; c < kTN; c += 32) {
+          const V v = col0 + c + lane < limit ? tile[r * kTN + c + lane] : lowest();
+          if (v > m) {
+            m = v;
+            a = c + lane;
+          }
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+          const V m2 = __shfl_xor_sync(kFull, m, off);
+          const int a2 = __shfl_xor_sync(kFull, a, off);
+          if (m2 > m || (m2 == m && a2 < a)) {
+            m = m2;
+            a = a2;
+          }
+        }
+        // Tiles arrive in ascending column order: strict > keeps the lowest
+        // column of the probe tile on a tie.
+        if (first || m > best[i]) {
+          best[i] = m;
+          arg[i] = sub * kTN + a;
+        }
+        if (last) {
+          sum[i] = add(sum[i], best[i]);
+          if constexpr (STAGE == kCeilPrologue) sum[i] = add(sum[i], (V)arg[i]);
+        }
+      }
+    }
+  }
+
+  // partial [n_chunks, Q] of V.
+  __device__ __forceinline__ void store(int rows, int q0, int Q, int chunk, V* partial) const {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+    for (int i = 0; i < RQ; ++i) {
+      const int r = warp + kWarps * i;
+      if (r < rows && lane == 0) partial[(long long)chunk * Q + q0 + r] = sum[i];
+    }
+  }
+};
 
 }  // namespace ragfin

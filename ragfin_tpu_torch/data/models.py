@@ -13,6 +13,9 @@ the pydantic models' behaviour, which :class:`_Record` keeps:
 - ``model_validate(dict)`` is the same construction from a mapping, with
   ``FinancialChunk`` checking its period pattern and minimum text length;
 - ``model_dump()`` returns the nested field dict that persistence writes.
+
+Of the API request/response models only ``GraphQueryRequest`` is read by the
+services (the others document payloads and are not ported).
 """
 
 from __future__ import annotations
@@ -282,3 +285,25 @@ class ExtractedEntities(_Record):
             + len(self.financial_ratios)
             + len(self.balance_sheet_items)
         )
+
+
+# ===============================
+# API REQUEST MODELS
+# ===============================
+
+
+@dataclass(init=False)
+class GraphQueryRequest(_Record):
+    """Body of the graph service's query endpoint (question of at least 5
+    characters, limit in 1..100)."""
+
+    question: str
+    limit: int = 10
+
+    _SPEC = {"question": ("str", False), "limit": ("int", False)}
+
+    def _validate(self) -> None:
+        if len(self.question) < 5:
+            raise ValidationError("question: shorter than 5 characters")
+        if not 1 <= self.limit <= 100:
+            raise ValidationError(f"limit: {self.limit} is not in 1..100")

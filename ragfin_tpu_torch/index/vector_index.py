@@ -9,14 +9,20 @@ records stay on the host. Unfiltered searches go through
 re-score of its shortlist on the host. Filtered searches and tier groups
 run the dense tiers with device-cached row masks.
 
-Not ported yet (they raise ``NotImplementedError``): ``save``/``load`` and
-``extended_with`` (ROADMAP Queue A item 7), and the hashed-featurizer paths
-(exact sparse re-rank, exact-bucket search, the integrity column; Queue A
-item 6).
+``save``/``load`` use the JAX package's on-disk format (``index.json`` plus
+``matrix.rgfi`` or ``matrix.npz``), so an index saved by either package loads
+in the other.
+
+Not ported yet (they raise ``NotImplementedError``): the hashed-featurizer
+paths (exact sparse re-rank, exact-bucket search, the integrity column, the
+refitting insert, saving or loading an index that carries a featurizer, a
+bag encoder or the ``minilm`` backend; ROADMAP Queue A item 6).
 """
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Optional, Sequence
 
 import numpy as np
@@ -36,7 +42,6 @@ from ..ops.quantize import quantize_corpus_t
 from ..utils.device import DeviceLike, resolve_device
 
 _NOT_PORTED_HASHED = "hashed-featurizer paths are not ported yet (ROADMAP Queue A item 6)"
-_NOT_PORTED_PERSIST = "index persistence is not ported yet (ROADMAP Queue A item 7)"
 
 
 def _q_bucket(n: int) -> int:
@@ -556,15 +561,110 @@ class DeviceVectorIndex:
             for gi in range(len(device_tiers))
         ]
 
-    def extended_with(self, new_chunks, refit: bool = True):
-        raise NotImplementedError("incremental insert: " + _NOT_PORTED_PERSIST)
+    # --- incremental insert (Milvus `collection.insert` parity) -----------
+    def _dense_rows(self) -> np.ndarray:
+        """The [n, D] f32 rows this index stands for. An int8 index gives
+        its pre-quantization shadow rows: the dequantized matrix would bake
+        one int8 rounding into whatever is rebuilt from them."""
+        if self.quantized and self._exact_rows is not None:
+            return np.asarray(self._exact_rows, np.float32)
+        if self.quantized:
+            dense = self.matrix_t.to(torch.float32) * self.scales
+        else:
+            dense = self.matrix_t.to(torch.float32)
+        return np.ascontiguousarray(dense[:, : self.n].T.cpu().numpy())
 
+    def extended_with(
+        self, new_chunks: Sequence[IndexedChunk], refit: bool = True
+    ) -> "DeviceVectorIndex":
+        """New index with ``new_chunks`` appended under the frozen embedder
+        (the trained encoder depends on no corpus statistics, so ``refit``
+        changes nothing for it). A corpus-dependent hashed embedder, which
+        ``refit=True`` would refit, is not ported."""
+        embedder = getattr(self, "embedder", None)
+        if embedder is None:
+            raise ValueError("index has no embedder; rebuild instead")
+        if refit and getattr(embedder, "featurizer", None) is not None:
+            raise NotImplementedError("the refitting insert: " + _NOT_PORTED_HASHED)
+        all_records = list(self.records) + list(new_chunks)
+        new = embedder.encode_texts([c.text for c in new_chunks])
+        out = DeviceVectorIndex(
+            np.concatenate([self._dense_rows(), new], axis=0),
+            all_records,
+            name=self.name,
+            dtype="int8" if self.quantized else self.matrix_t.dtype,
+            normalize=False,
+            device=self.device,
+        )
+        out.embedder = embedder
+        return out
+
+    # --- persistence ------------------------------------------------------
     def save(self, directory: str) -> None:
-        raise NotImplementedError(_NOT_PORTED_PERSIST)
+        """Write ``index.json`` and the f32 matrix (the shadow rows for an
+        int8 index) in the JAX package's format."""
+        embedder = getattr(self, "embedder", None)
+        backend = getattr(embedder, "backend", "hashed") if embedder is not None else None
+        if (
+            backend in ("hashed", "minilm")
+            or getattr(self, "featurizer", None) is not None
+            or getattr(self, "encoder", None) is not None
+        ):
+            raise NotImplementedError("saving this index: " + _NOT_PORTED_HASHED)
+        from ..utils import indexio
+
+        os.makedirs(directory, exist_ok=True)
+        dense = self._dense_rows()
+        if indexio.available():
+            # Native RGFI format: uncompressed + CRC32, the fast path for
+            # multi-GB matrices where npz compression takes minutes.
+            indexio.write_array(os.path.join(directory, "matrix.rgfi"), dense)
+        else:
+            np.savez_compressed(os.path.join(directory, "matrix.npz"), matrix=dense)
+        meta = {
+            "name": self.name,
+            "n": self.n,
+            "dim": self.dim,
+            # The matrix is persisted as f32; the serving dtype is recorded
+            # so that load() rebuilds the same tier.
+            "dtype": "int8" if self.quantized else str(self.matrix_t.dtype).replace("torch.", ""),
+            "records": [r.model_dump() for r in self.records],
+        }
+        if embedder is not None:
+            meta["embedder"] = embedder.state_dict()
+        with open(os.path.join(directory, "index.json"), "w") as f:
+            json.dump(meta, f, ensure_ascii=False)
 
     @classmethod
-    def load(cls, directory: str, **kwargs):
-        raise NotImplementedError(_NOT_PORTED_PERSIST)
+    def load(cls, directory: str, device: DeviceLike = None, **kwargs) -> "DeviceVectorIndex":
+        with open(os.path.join(directory, "index.json")) as f:
+            meta = json.load(f)
+        backend = meta.get("embedder", {}).get("backend")
+        if "featurizer" in meta or "encoder" in meta or backend == "minilm":
+            # Never load an index without the embedder its matrix was built by.
+            raise NotImplementedError("loading this index: " + _NOT_PORTED_HASHED)
+        rgfi = os.path.join(directory, "matrix.rgfi")
+        if os.path.exists(rgfi) or os.path.exists(rgfi + ".npy"):
+            from ..utils import indexio
+
+            matrix = indexio.read_array(rgfi)
+        else:
+            with np.load(os.path.join(directory, "matrix.npz")) as data:
+                matrix = data["matrix"]
+        records = [IndexedChunk(**r) for r in meta["records"]]
+        if "dtype" not in kwargs and "dtype" in meta:
+            kwargs["dtype"] = meta["dtype"]
+        index = cls(
+            matrix, records, name=meta.get("name", DEFAULT_COLLECTION), device=device, **kwargs
+        )
+        if backend == "trained":
+            from ..models.embedder import TrainedEmbedder
+
+            ckpt = meta["embedder"].get("checkpoint")
+            if ckpt and not os.path.exists(os.path.join(ckpt, "config.json")):
+                ckpt = None  # saved under a moved/renamed tree: packaged default
+            index.embedder = TrainedEmbedder(checkpoint=ckpt, device=index.device)
+        return index
 
     # --- point lookups (Milvus `query(expr="id in [...]")` parity) -------
     def get_by_ids(self, chunk_ids: Sequence[str]) -> list[IndexedChunk]:

@@ -42,6 +42,10 @@ KERNELS = {
         "ragfin_ivf_topk",
         [_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P],
     ),
+    "ceiling": (
+        "ragfin_ceiling",
+        [_P, _I, _I, _P, _P, _I, _I, _LL, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    ),
 }
 
 _lock = threading.Lock()

@@ -7,11 +7,13 @@ Port of ``ragfin_tpu/serving/engine.py``: chunks -> trained embedder ->
 beside it the graph store (:class:`GraphIndex`), its ``GraphBuilder`` and query
 engine, and ``HybridRAG`` over both. ``default_model ==
 "fake"`` is the offline path: no provider, lexical question entities,
-rule-based extraction. REST/MCP frontends and loading chunks from
-``data_dir`` are a later slice (ROADMAP Slice 4).
+rule-based extraction. Every frontend (REST, MCP, adapters, CLI) wraps the
+one engine that :func:`get_engine` keeps for the process.
 
 Unlike the JAX engine, nothing here falls back quietly: a graph store or an
-IVF index that fails to load raises, and ``warmup`` lets errors rise.
+index that fails to load raises, and ``warmup`` lets errors rise. The device
+is the argument's, else ``Settings.device`` (``RAGFIN_DEVICE``), else the
+card; without a card and without ``cpu`` asked for, construction raises.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import os
 from typing import Optional
 
 from ..config.settings import Settings, get_config
+from ..data.loader import build_corpus, load_chunk_snapshot
 from ..extraction.service import EntityExtractor, RuleBasedExtractor
 from ..index.graph_index import GraphIndex
 from ..index.vector_index import DeviceVectorIndex
@@ -45,14 +48,9 @@ class RagFinEngine:
         device: DeviceLike = None,
     ):
         self.settings = settings or get_config()
-        self.device = resolve_device(device)
+        self.device = resolve_device(device if device is not None else self.settings.device)
         self.provider = provider if provider is not None else self._make_provider()
-        if chunks is None and vector_index is None and not self._saved_ivf():
-            raise NotImplementedError(
-                "loading chunks from data_dir/snapshots is not ported yet "
-                "(ROADMAP Slice 4): pass chunks or a vector_index"
-            )
-        self.chunks = list(chunks) if chunks is not None else []
+        self.chunks = list(chunks) if chunks is not None else self._load_chunks()
         self.vector_index = (
             vector_index if vector_index is not None else self._build_or_load_index()
         )
@@ -96,12 +94,23 @@ class RagFinEngine:
             return None  # offline: deterministic paths only
         return ModelFactory.create_provider(model, self.settings.get_api_key_for_model(model))
 
-    def _saved_ivf(self) -> bool:
+    def _load_chunks(self):
+        """Snapshot, then ``data_dir``; an empty list (a degraded engine) if
+        neither has chunks. The JAX package's last resort, a mount of the
+        reference repository at a fixed path, has no counterpart."""
+        snapshot = self.settings.chunks_snapshot
+        if snapshot and os.path.exists(snapshot):
+            return load_chunk_snapshot(snapshot)
+        if os.path.isdir(self.settings.data_dir):
+            return build_corpus(self.settings.data_dir)
+        return []
+
+    def _saved(self, name: str) -> bool:
         index_dir = self.settings.index_dir
-        return bool(index_dir) and os.path.exists(os.path.join(index_dir, "ivf.json"))
+        return bool(index_dir) and os.path.exists(os.path.join(index_dir, name))
 
     def _build_or_load_index(self):
-        if self._saved_ivf():
+        if self._saved("ivf.json"):
             from ..index.ivf_index import IVFVectorIndex
 
             index = IVFVectorIndex.load(self.settings.index_dir, device=self.device)
@@ -110,6 +119,8 @@ class RagFinEngine:
             # index without a text encoder).
             index.embedder = self._make_embedder()
             return index
+        if self._saved("index.json"):
+            return DeviceVectorIndex.load(self.settings.index_dir, device=self.device)
         dense = DeviceVectorIndex.build(
             self.chunks,
             embedder=self._make_embedder(),
@@ -144,13 +155,12 @@ class RagFinEngine:
         return GraphIndex(device=self.device)
 
     def persist(self) -> None:
-        """Save the graph store under ``index_dir/graph``, then the vector
-        index under ``index_dir``. The flat index's ``save`` is not ported
-        yet and raises (ROADMAP Queue A item 7), after the graph is written;
-        an IVF index saves."""
+        """Save the vector index under ``index_dir`` and the graph store
+        under ``index_dir/graph``; a later engine with the same settings
+        loads both and needs no chunks."""
         if self.settings.index_dir:
-            self.graph.save(os.path.join(self.settings.index_dir, "graph"))
             self.vector_index.save(self.settings.index_dir)
+            self.graph.save(os.path.join(self.settings.index_dir, "graph"))
 
     def warmup(self) -> None:
         """Run the serving shapes once (top-k widths, tier-group plans, Q and
@@ -189,6 +199,18 @@ class RagFinEngine:
 
     def health(self) -> dict:
         issues = self.settings.validate()
+        integrity_active = bool(
+            self.settings.integrity_weight > 0
+            and getattr(self.vector_rag, "_searcher", None) is not None
+        )
+        if self.settings.integrity_weight > 0 and not integrity_active:
+            # Runtime truth beats the static validate() heuristic: the
+            # served index determines whether FilteredSearch (and thus the
+            # tamper defense) is actually live.
+            issues = issues + [
+                "integrity_weight configured but INACTIVE at runtime "
+                "(served index has no FilteredSearch pipeline)"
+            ]
         return {
             "status": "healthy" if self.vector_index.n > 0 else "degraded",
             "vector_index": {
@@ -202,5 +224,26 @@ class RagFinEngine:
             "provider": getattr(self.provider, "model_name", None) or "offline",
             "extraction_model": self.graph_builder.current_model,
             "integrity_weight": self.settings.integrity_weight,
+            # Whether the configured weight is live: it applies only through
+            # the FilteredSearch pipeline (not with index_type=ivf).
+            "integrity_active": integrity_active,
             "config_issues": issues,
         }
+
+
+_engine: Optional[RagFinEngine] = None
+
+
+def get_engine(**kwargs) -> RagFinEngine:
+    """Process-wide engine singleton."""
+    global _engine
+    if _engine is None:
+        _engine = RagFinEngine(**kwargs)
+    return _engine
+
+
+def reset_engine() -> None:
+    global _engine
+    if _engine is not None:
+        _engine.close()
+    _engine = None

@@ -7,9 +7,17 @@ rebuild's north-star metric is QPS/latency, so this is first-class here:
 - :class:`MetricRegistry` — process-wide counters + latency histograms with
   p50/p90/p99 summaries; every engine/service surface can record into it.
 
-Copy of ``ragfin_tpu/utils/profiling.py`` without its ``jax.profiler``
-helpers (``trace``, ``device_memory_stats``); a device trace on the GPU is
-``torch.profiler``'s job.
+- :func:`trace` — a ``torch.profiler`` capture of host and device activity,
+  written as a Chrome trace into a directory.
+- :func:`device_memory_stats` — live device memory per CUDA card.
+- :func:`device_ms` — median CUDA-event time of a call, and :func:`card` —
+  the card's name and power limit: the one timer and the one label of every
+  device time the bench, the probe script and the chip smoke report.
+
+Counterpart of ``ragfin_tpu/utils/profiling.py``: the timers and the registry
+are copies, the two device helpers are over ``torch.profiler`` and
+``torch.cuda.memory_stats`` where the JAX package uses ``jax.profiler``;
+``device_ms`` stands where ``bench.py`` times a ``lax.scan`` on the device.
 """
 
 from __future__ import annotations
@@ -153,3 +161,74 @@ class MetricRegistry:
 
 
 METRICS = MetricRegistry()
+
+
+@contextlib.contextmanager
+def trace(log_dir: str) -> Iterator[None]:
+    """Capture a ``torch.profiler`` trace (host, and the card when there is
+    one) of the enclosed block into ``log_dir/trace.json`` (Chrome trace
+    format: chrome://tracing, Perfetto, TensorBoard's profiler plugin)."""
+    import os
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def device_memory_stats() -> list[dict]:
+    """Live device memory per CUDA card (empty without one)."""
+    import torch
+
+    out = []
+    if not torch.cuda.is_available():
+        return out
+    for i in range(torch.cuda.device_count()):
+        stats = torch.cuda.memory_stats(i)
+        out.append(
+            {
+                "device": f"cuda:{i}",
+                "bytes_in_use": stats.get("allocated_bytes.all.current"),
+                "peak_bytes_in_use": stats.get("allocated_bytes.all.peak"),
+                "bytes_limit": torch.cuda.get_device_properties(i).total_memory,
+            }
+        )
+    return out
+
+
+def device_ms(fn, runs: int = 20, warmup: int = 3) -> float:
+    """Median device time of ``fn()`` in ms: ``runs`` timings, one pair of
+    CUDA events around each call, after ``warmup`` untimed calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def card() -> str:
+    """Name and power limit of the first card, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them."""
+    import subprocess
+
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]

@@ -265,18 +265,25 @@ def test_persist_and_reload_graph(torch_engine, tmp_path):
         torch_engine.graph_builder.build_from_vector_index(torch_engine.vector_index)
     torch_engine.settings.index_dir = str(tmp_path)
     try:
-        # The graph store is written first; the flat index's save is not
-        # ported yet and says which ROADMAP item it is.
-        with pytest.raises(NotImplementedError, match="Queue A item 7"):
-            torch_engine.persist()
+        torch_engine.persist()
     finally:
         torch_engine.settings.index_dir = ""
+    assert (tmp_path / "index.json").exists() and (tmp_path / "graph" / "graph.json").exists()
     again = TEngine(
         settings=TSettings(embed_backend="trained", index_dir=str(tmp_path), batch_queries=False),
         vector_index=torch_engine.vector_index, device="cpu",
     )
     assert again.graph.stats() == torch_engine.graph.stats()
     assert again.graph.match(names=["NET PROFIT"]) == torch_engine.graph.match(names=["NET PROFIT"])
+    # Without chunks and without an index handed in, the saved flat index is
+    # loaded and serves the same hits.
+    loaded = TEngine(
+        settings=TSettings(embed_backend="trained", index_dir=str(tmp_path), batch_queries=False),
+        device="cpu",
+    )
+    assert loaded.chunks == [] and loaded.vector_index.n == torch_engine.vector_index.n
+    q = "What were total customer deposits?"
+    assert loaded.vector_rag.search(q, top_k=3) == torch_engine.vector_rag.search(q, top_k=3)
     # A store that cannot be read raises; nothing falls back to an empty graph.
     (tmp_path / "graph" / "graph.json").write_text("{broken")
     with pytest.raises(ValueError):
@@ -412,8 +419,12 @@ def test_engine_builds_saves_and_loads_ivf(corpora, tmp_path):
         TEngine(settings=settings, device="cpu")
 
 
-def test_engine_needs_chunks_or_an_index():
-    with pytest.raises(NotImplementedError, match="Slice 4"):
-        TEngine(settings=TSettings(index_dir=""), device="cpu")
+def test_engine_needs_chunks_or_an_index(tmp_path):
+    # Nothing to load: an empty, degraded engine, as in the JAX package.
+    empty = TEngine(
+        settings=TSettings(index_dir="", data_dir=str(tmp_path), batch_queries=False),
+        device="cpu",
+    )
+    assert empty.vector_index.n == 0 and empty.health()["status"] == "degraded"
     with pytest.raises(ValueError, match="index_type"):
         TEngine(settings=TSettings(index_dir="", index_type="hnsw"), chunks=[], device="cpu")

@@ -1,6 +1,7 @@
-"""The port stands alone: ``ragfin_tpu_torch`` and ``chip_smoke.py`` import
-neither JAX nor anything of the JAX package, and the port's entry points
-refuse to run on the CPU unless the caller asks for it."""
+"""The port stands alone: ``ragfin_tpu_torch``, ``chip_smoke.py``,
+``bench_torch.py`` and ``scripts/kernel_probe_torch.py`` import neither JAX
+nor anything of the JAX package, and the port's entry points refuse to run on
+the CPU unless the caller asks for it."""
 
 import ast
 import os
@@ -16,7 +17,11 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ragfin_tpu")
 
 
 def _port_files():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [
+        os.path.join(ROOT, "chip_smoke.py"),
+        os.path.join(ROOT, "bench_torch.py"),
+        os.path.join(ROOT, "scripts", "kernel_probe_torch.py"),
+    ]
     for dirpath, _, names in os.walk(PKG):
         out += [os.path.join(dirpath, n) for n in sorted(names) if n.endswith(".py")]
     return sorted(out)
@@ -136,3 +141,95 @@ def test_chip_smoke_refuses_without_card(tmp_path):
         )
         assert out.returncode != 0
         assert '"ok": true' not in out.stdout
+
+
+def _run_cli(tmp_path, device_env):
+    from ragfin_tpu_torch.eval.statements import write_extract_data
+
+    data = write_extract_data(str(tmp_path / "extract_data"), seed=2)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("RAGFIN_")}
+    env.update(PYTHONPATH=ROOT, **device_env)
+    return subprocess.run(
+        [sys.executable, "-m", "ragfin_tpu_torch.cli", "query", "What was the net profit in Q1 FY2024?",
+         "--data", data, "--index", ""],
+        cwd=str(tmp_path), env=env, capture_output=True, text=True, timeout=300,
+    )
+
+
+def test_cli_query_refuses_without_card_unless_cpu_is_asked_for(tmp_path):
+    """``python -m ragfin_tpu_torch.cli query`` without a card exits with the
+    "no CUDA device" error and no answer; with RAGFIN_DEVICE=cpu it answers."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    out = _run_cli(tmp_path, {})
+    assert out.returncode != 0 and "no CUDA device" in out.stderr
+    assert '"answer"' not in out.stdout
+    out = _run_cli(tmp_path, {"RAGFIN_DEVICE": "cpu"})
+    assert out.returncode == 0, out.stderr[-1500:]
+    import json
+
+    assert json.loads(out.stdout)["contexts"][0]["id"] == "icici_q1_fy2024_profitability_analysis"
+
+
+@pytest.mark.parametrize("script", ["bench_torch.py", os.path.join("scripts", "kernel_probe_torch.py")])
+def test_bench_scripts_say_so_without_a_card(script):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    argv = [sys.executable, os.path.join(ROOT, script)] + (["ceiling_dma_1m"] if "probe" in script else [])
+    out = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=ROOT, BENCH_N="4096"))
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stdout + out.stderr
+    if script == "bench_torch.py":
+        import json
+
+        lines = out.stdout.strip().splitlines()
+        assert len(lines) == 1 and json.loads(lines[0])["value"] is None
+
+
+def test_launcher_runs_on_the_cpu_when_asked(tmp_path):
+    """``python -m ragfin_tpu_torch.serving.main --services ...`` starts, prints
+    its service table and answers /health."""
+    import http.client
+    import json
+    import signal
+
+    from ragfin_tpu_torch.eval.statements import write_extract_data
+
+    data = write_extract_data(str(tmp_path / "extract_data"), seed=2)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("RAGFIN_")}
+    env.update(PYTHONPATH=ROOT, RAGFIN_DEVICE="cpu", RAGFIN_DATA_DIR=data, RAGFIN_INDEX_DIR="",
+               PYTHONUNBUFFERED="1")
+    proc = subprocess.Popen(
+        [sys.executable, "-c",
+         "from ragfin_tpu_torch.config.settings import get_config\n"
+         "get_config().ports.update({'graph_service': 0})\n"
+         "from ragfin_tpu_torch.serving.main import main\n"
+         "main(['--services', 'graph_service'])"],
+        cwd=str(tmp_path), env=env, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True,
+    )
+    import threading
+
+    watchdog = threading.Timer(240, proc.kill)  # a hung launcher must not hang the suite
+    watchdog.start()
+    try:
+        line = ""
+        while "graph_service:" not in line:
+            line = proc.stdout.readline()
+            assert line, "the launcher exited before it printed its services"
+        port = int(line.strip().rsplit(":", 1)[1])
+        assert port != 8002  # the ephemeral port asked for, not the registry's
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+        conn.request("GET", "/health")
+        body = json.loads(conn.getresponse().read())
+        conn.close()
+        assert body["status"] == "healthy" and body["neo4j_connected"] is True
+    finally:
+        watchdog.cancel()
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+    assert proc.poll() is not None
