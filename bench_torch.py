@@ -99,7 +99,7 @@ def main() -> int:
 
     # The ceiling stages see the kernel's own inputs: int8 queries as the
     # fused int8 wrapper quantizes them, bf16-rounded ones for the bf16 tier.
-    block_n = fused_chunk_columns(Q, N, dev)
+    block_n = fused_chunk_columns(Q, N, dev, corpus.dtype, D)
     if DTYPE == "int8":
         probe_q = [quantize_queries(q)[0] for q in qs]
     else:

@@ -10,10 +10,17 @@ Phases (any failure exits nonzero, and no phase carries on past one):
 
 1. Device and build: the card's name and power limit from nvidia-smi, then
    every kernel in ragfin_tpu_torch/csrc/ built with nvcc (one process per
-   source, all started together).
+   source, all started together), and the ptxas line (registers, spills) of
+   every f32/bf16 pass-1 instantiation and merge case; a spill in a pass-1
+   instantiation the main path runs fails. Then the merge cases, the
+   two-level selection's primitives: scripts/mosaic_bisect_torch.py as a
+   user runs it, with the kernel's counter at 0 just before and read just
+   after, and each case bitwise against its plain version, timed.
 2. Kernels against their plain PyTorch versions, on seeded unit embeddings
    at D = 384, N = 1,000,000, n_valid not a multiple of any tile, for
-   Q in {1, 8, 64} and k in {3, 64, 70}: f32 "exact", bf16 "fast", int8.
+   Q in {1, 8, 64, 1024} and k in {3, 64, 70}: f32 "exact", bf16 "exact"
+   (f32 queries), bf16 "fast", int8. The f32/bf16 ids must also equal
+   those of an f64 oracle on the same inputs outside tie bands.
    Duplicated corpus columns make exact ties, which must come back lowest
    id first. f32/bf16 scores agree within 1e-5 (the kernel and cuBLAS sum in
    different orders); int8 scores are bitwise equal (the integer dot is
@@ -94,6 +101,8 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
+import io
 import json
 import os
 import statistics
@@ -113,9 +122,10 @@ F32_TOL = 1e-5
 # Served (batched) against single searches: the bf16 encoder's output moves
 # by ~1e-4 with the padded shape of the batch a query was encoded in.
 BATCH_TOL = 1e-3
-# H100 SXM peaks (NVIDIA data sheet, dense): FP32 cores, bf16 and int8
-# tensor cores, HBM3.
-PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
+# H100 SXM peaks (NVIDIA data sheet, dense): FP32 cores, bf16, TF32 and int8
+# tensor cores, HBM3. "tf32x3" is the f32-accurate product of the f32/bf16
+# pass 1: three TF32 products per multiply-add.
+PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12, "tf32x3": 495e12 / 3}
 PEAK_BYTES = 3.35e12
 
 
@@ -172,6 +182,24 @@ def score_err(got, ref) -> float:
 # --- phase 2 -------------------------------------------------------------
 
 
+def f64_oracle(torch, q, corpus_t, k, n_valid, bf16_queries=False):
+    """Top k by f64 scores of the same inputs (queries rounded to bf16 for
+    the fast tier), columns >= n_valid masked; [Q, k] numpy scores and ids.
+    Ties come back in any order: compare ids outside tie bands only."""
+    qd = (q.to(torch.bfloat16) if bf16_queries else q).double()
+    best_s, best_i = None, None
+    for c0 in range(0, n_valid, 1 << 18):
+        c1 = min(n_valid, c0 + (1 << 18))
+        sc = qd @ corpus_t[:, c0:c1].double()
+        s, i = torch.topk(sc, min(k, c1 - c0), dim=1)
+        i = i + c0
+        if best_s is not None:
+            s, sel = torch.topk(torch.cat([best_s, s], 1), k, dim=1)
+            i = torch.gather(torch.cat([best_i, i], 1), 1, sel)
+        best_s, best_i = s, i
+    return best_s.float().cpu().numpy(), best_i.cpu().numpy()
+
+
 def kernel_phase(torch, topk) -> dict:
     import numpy as np
 
@@ -194,12 +222,12 @@ def kernel_phase(torch, topk) -> dict:
     ct8, sc8 = quantize_corpus_t(ct32)
     tiled = topk.tile_corpus_t(ct32, 2048)
     qgen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    q_all = torch.randn((64, D), generator=qgen, device=dev)
+    q_all = torch.randn((1024, D), generator=qgen, device=dev)
     q_all = q_all / torch.linalg.vector_norm(q_all, dim=1, keepdim=True)
     q_all[:8] = ct32[:, src[:8]].T  # tie-heavy rows: each matches 8 equal columns
     q_all[8] = 0.0  # all-zero row: every score 0, lowest ids first
 
-    cases = [(1, 3), (8, 64), (64, 64), (64, 70)]
+    cases = [(1, 3), (8, 64), (64, 64), (64, 70), (1024, 64)]
     errs = {"fused_topk": 0.0, "fused_topk_int8": 0.0}
     f32 = topk.cosine_topk_fused
     i8 = topk.cosine_topk_fused_int8
@@ -210,12 +238,20 @@ def kernel_phase(torch, topk) -> dict:
              lambda kk: topk.fused_topk_plain(q, ct32, kk, n_valid=n_valid)),
             ("f32 tile-major", lambda: f32(q, tiled, k, n_valid=n_valid),
              lambda kk: topk.fused_topk_plain(q, tiled, kk, n_valid=n_valid)),
+            ("bf16 exact", lambda: f32(q, ct16, k, n_valid=n_valid),
+             lambda kk: topk.fused_topk_plain(q, ct16, kk, n_valid=n_valid)),
             ("bf16 fast", lambda: f32(q, ct16, k, n_valid=n_valid, precision="fast"),
              lambda kk: topk.fused_topk_plain(q, ct16, kk, n_valid=n_valid, precision="fast")),
         ]
         for label, run, plain in variants:
             s, i = run()
             torch.cuda.synchronize()
+            if label != "f32 tile-major":
+                # Ids against the f64 oracle of the same inputs, outside tie bands.
+                os_, oi = f64_oracle(torch, q, ct16 if "bf16" in label else ct32, k + 1, n_valid,
+                                     bf16_queries=label == "bf16 fast")
+                if not ids_agree(os_, oi, i.cpu().numpy(), F32_TOL):
+                    raise AssertionError(f"{label} Q={q_n} k={k}: ids differ from the f64 oracle")
             ps, pi = plain(k + 1)
             s, i, ps, pi = (x.cpu().numpy() for x in (s, i, ps, pi))
             if s.shape != (q_n, k) or not np.isfinite(s[:, : min(k, n_valid)]).all():
@@ -235,7 +271,8 @@ def kernel_phase(torch, topk) -> dict:
         if not (np.array_equal(s, ps) and np.array_equal(i, pi)):
             raise AssertionError(f"int8 Q={q_n} k={k}: not bitwise equal to the plain version")
         check_ties(np, "int8", q_n, k, s, i, src, n)
-        print(f"kernel check Q={q_n} k={k}: f32/tile-major/bf16 within {F32_TOL}, "
+        print(f"kernel check Q={q_n} k={k}: f32/tile-major/bf16 exact/bf16 fast within {F32_TOL} "
+              f"of plain, ids equal to the f64 oracle outside tie bands, "
               f"int8 bitwise equal", flush=True)
 
     # Timing at the main path's widths: k = 64 (f32) and 70 (int8 shortlist).
@@ -243,7 +280,7 @@ def kernel_phase(torch, topk) -> dict:
     for q_n in (1, 8, 64):
         q = q_all[:q_n].contiguous()
         for name, corpus_dtype, ops_type, k, run, plain, lib in (
-            ("fused_topk", "float32", "float32", 64,
+            ("fused_topk", "float32", "tf32x3", 64,
              lambda: f32(q, ct32, 64, n_valid=n_valid),
              lambda: topk.fused_topk_plain(q, ct32, 64, n_valid=n_valid),
              lambda: torch.topk(torch.matmul(q, ct32), 64)),
@@ -336,7 +373,7 @@ def stage_ladder(torch, label, probe_q, corpus, scales, n_valid, run) -> dict:
     from ragfin_tpu_torch.ops import ceiling as C
 
     q_n, n = probe_q.shape[0], corpus.shape[-1]
-    block_n = C.fused_chunk_columns(q_n, n, corpus.device)
+    block_n = C.fused_chunk_columns(q_n, n, corpus.device, corpus.dtype, D)
     stages = C.ladder_stages(corpus.dtype)
     err = max(ceiling_check(torch, f"ladder {label}", probe_q, corpus, stage, block_n,
                             n_valid, scales)[0] for stage in stages)
@@ -365,12 +402,13 @@ def ceiling_bound(q: int, n: int, corpus: str, stage: str) -> tuple[float, str]:
     """Least time for one ceiling call: the larger of its bytes (corpus, the
     int8 scales where the stage dequantises, queries, output, each once) over
     the memory rate and, from the product on, 2*Q*N*D operations over the peak
-    rate of the corpus type."""
+    rate of the product's type (3xTF32 for an f32 corpus)."""
     item = {"float32": 4, "bfloat16": 2, "int8": 1}[corpus]
     scales = 4 * n if corpus == "int8" and stage not in ("dma", "mmint", "rowmaxint") else 0
     nbytes = D * n * item + scales + (0 if stage == "dma" else q * D * item) + 4 * q
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = 0.0 if stage == "dma" else 2.0 * q * n * D / PEAK_OPS[corpus] * 1e3
+    rate = PEAK_OPS["tf32x3" if corpus == "float32" else corpus]
+    t_ops = 0.0 if stage == "dma" else 2.0 * q * n * D / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -428,7 +466,8 @@ def ceiling_phase(torch, topk) -> dict:
     bn = 2048
     ct = normal_bf16((D, -(-n // bn) * bn), SEED + 7, dev)
     q = normal_bf16((128, D), SEED + 8, dev)
-    run_family("bf16 Q=128 bn=2048 flat", q, ct, None, bn, None, ("dma", "matmul", "rowmax"))
+    run_family("bf16 Q=128 bn=2048 flat", q, ct, None, bn, None, ("dma", "matmul", "rowmax"),
+               lib_stage="matmul")
     read_check("bf16 Q=128 bn=2048 flat", q, ct, bn)
     tiles = topk.tile_corpus_t(ct, bn)
     run_family("bf16 Q=128 bn=2048 tile-major", q, tiles, None, None, None, ("dma", "rowmax"))
@@ -470,7 +509,7 @@ def ceiling_phase(torch, topk) -> dict:
     # kernel's chunk.
     ct = unit_corpus_t(n, seed=0, device=dev, d=D)
     q = unit_queries((64, D), seed=1, device=dev).to(torch.bfloat16)
-    bn = C.fused_chunk_columns(64, n, dev)
+    bn = C.fused_chunk_columns(64, n, dev, ct.dtype, D)
     family = f"bf16 Q=64 bn={bn} bench shape"
     run_family(family, q, ct, None, bn, n, C.ladder_stages(ct.dtype))
     read_check(family, q, ct, bn)
@@ -536,6 +575,75 @@ def check_ties(np, label, q_n, k, s, i, src, n):
             raise AssertionError(f"{label} Q={q_n} k={k}: tied scores differ {s[r, :8]}")
     if q_n > 8 and not (np.array_equal(i[8], np.arange(k)) and (s[8] == 0).all()):
         raise AssertionError(f"{label} Q={q_n} k={k}: zero row gave {i[8][:5]} {s[8][:5]}")
+
+
+# --- phase 1: the merge cases ----------------------------------------------
+
+# One case's bytes: a [64, 256] f32 tile in, a [64, 128] f32 tile out.
+MERGE_BYTES = 64 * 256 * 4 + 64 * 128 * 4
+
+
+def merge_phase(torch, here: str) -> dict:
+    """The two-level selection's primitives on the card: the script a user
+    runs (scripts/mosaic_bisect_torch.py) with the kernel's counter at 0 just
+    before and read just after, then each case bitwise against its plain
+    version on the same tile and timed beside it."""
+    from ragfin_tpu_torch.ops import merge_cases as M
+
+    sys.path.insert(0, os.path.join(here, "scripts"))
+    import mosaic_bisect_torch as bisect
+
+    M.merge_case.launches = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = bisect.main([])
+    torch.cuda.synchronize()
+    launches = M.merge_case.launches
+    print(buf.getvalue(), end="", flush=True)
+    if rc != 0 or launches < len(M.CASES):
+        raise AssertionError(f"mosaic_bisect_torch.py exited {rc} after {launches} launches")
+    x_cpu = bisect.tiles()["uniform"]
+    x = x_cpu.cuda()
+    cases, err = {}, 0.0
+    for name in M.CASES:
+        got = M.merge_case(name, x)
+        torch.cuda.synchronize()
+        want = M.merge_case_plain(name, x_cpu)
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"merge case {name}: not bitwise equal to the plain version")
+        err = max(err, score_err(got.cpu().numpy(), want.numpy()))
+        cases[name] = dict(ms=time_ms(torch, lambda: M.merge_case(name, x)),
+                           plain_ms=time_ms(torch, lambda: M.merge_case_plain(name, x), runs=5,
+                                            warmup=1))
+    M.merge_case.launches = 0
+    b_ms = MERGE_BYTES / PEAK_BYTES * 1e3
+    print("merge cases (bitwise equal to plain): " + ", ".join(
+        f"{name} {c['ms']:.4f} ms (plain {c['plain_ms']:.4f})" for name, c in cases.items())
+        + f"; bound {b_ms:.6f} ms (bytes)", flush=True)
+    whole = cases["nested_while"]
+    return dict(launches=launches, max_abs_err=err, ms=whole["ms"], plain_ms=whole["plain_ms"],
+                bound_ms=b_ms, bound_by="bytes", library_ms=None, cases=cases)
+
+
+def pass1_ptxas(_cuda) -> None:
+    """The ptxas line of every f32/bf16 pass-1 instantiation and merge case;
+    a spill in an instantiation the main path runs (selection, k <= 64)
+    fails."""
+    import re
+
+    bad = []
+    for name in _cuda.KERNELS:
+        report = _cuda.ptxas_report(_cuda.build_log(name))
+        spilled = set(_cuda.spills(report))
+        for kernel, summary in report:
+            if "fused_topk_pass1<" not in kernel and "merge_case_kernel" not in kernel:
+                continue
+            short = re.sub(r"\([^()]*\)$", "", kernel)  # without the parameter list
+            print(f"ptxas {name}: {short}: {summary}", flush=True)
+            if kernel in spilled and re.search(r"fused_topk_pass1<[^>]*, 0, 2>", kernel):
+                bad.append(short)
+    if bad:
+        raise AssertionError(f"main-path pass-1 instantiations spill registers: {bad}")
 
 
 # --- phase 4: first-k alone ------------------------------------------------
@@ -739,7 +847,7 @@ def ivf_phase(torch, topk, ivf, sweep: bool = False) -> dict:
     idx8 = idx32._replace(cells=tiles(c8, D), scales=tiles(sc8, 1))
     del flat, c8, sc8
 
-    tiers = (("f32 exact", idx32, "exact", "float32", "float32"),
+    tiers = (("f32 exact", idx32, "exact", "float32", "tf32x3"),
              ("bf16 fast", idx16, "fast", "bfloat16", "bfloat16"),
              ("int8", idx8, "fast", "int8", "int8"))
     rows, max_err = {}, 0.0
@@ -1434,8 +1542,6 @@ def cli_phase(torch, work_dir: str, here: str) -> dict:
     generated extract_data tree; then ``bench`` through the CLI in this
     process (BENCH_N = 1,000,000, BENCH_Q = 64), so that the ceiling kernel's
     launches on the bench path are counted."""
-    import contextlib
-    import io
 
     from ragfin_tpu_torch import cli
     from ragfin_tpu_torch.eval.statements import write_extract_data
@@ -1530,11 +1636,9 @@ def main() -> int:
           f"CUDA {torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
     logs = _cuda.build_all()
-    print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line.lower():
-                print(f"ptxas {name}: {line.strip()}", flush=True)
+    print(f"kernels built in {time.perf_counter() - t0:.1f} s ({len(logs)} sources)", flush=True)
+    pass1_ptxas(_cuda)
+    merge = merge_phase(torch, here)
 
     first_k = first_k_phase(torch, graph_index)
     if args.graph:
@@ -1604,6 +1708,15 @@ def main() -> int:
         "stages": {f"{family} {stage}": row for (family, stage), row in ceil["rows"].items()},
         "ladders_q64": kern["ladders"],
         "served_launches": served["launches"],
+    })
+    table.append({
+        "name": "merge_cases", "route": "cuda", "source": "ragfin_tpu_torch/csrc/merge_cases.cu",
+        "replaces": "scripts/mosaic_bisect.py:26",
+        "path": "scripts/mosaic_bisect_torch.py",
+        **{key: merge[key] for key in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")},
+        "shape": {"case": "nested_while", "rows": 64, "cols": 256, "sub": 128, "k": 10},
+        "cases": merge["cases"],
     })
     for row in table:
         if row["launches"] < 1:

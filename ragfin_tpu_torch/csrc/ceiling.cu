@@ -14,32 +14,35 @@
 //              column on a tie) as f32
 //   mmint, rowmaxint (int8 only)  the same as mm / rowmax on the raw int32
 //              sums, masked with -(2^31) + 1, summed in int32
-// over an f32 or bf16 corpus (f32 product of the values widened to f32) or
+// over an f32 or bf16 corpus (the f32-accurate tensor-core product of pass
+// 1: 3xTF32, or bf16 with the queries split unless they are bf16 values) or
 // an int8 corpus with per-column scales (int32 product, then int32 -> f32
 // times the column scale). Output [Q] f32.
 //
 // What bounds each stage on an H100: dma reads the corpus once per query
 // tile and does nothing else, so device memory bounds it (768 MB of bf16 at
-// N = 1M: 0.23 ms at 3.35 TB/s); from mm on, the product bounds it (FP32-core
-// FMAs for f32/bf16, __dp4a for int8, both far below the tensor cores'
-// rate), and the stages above mm add shared-memory reads and warp shuffles
-// per tile.
+// N = 1M: 0.23 ms at 3.35 TB/s); from mm on, the f32/bf16 product runs on
+// the tensor cores under that same bound at Q = 64, and the int8 one on
+// __dp4a; the stages above mm add the level-1 reductions of the two-level
+// selection (row maxima over the accumulators, a barrier per tile).
 //
 // Design: the probe IS pass 1 (fused_pass1.cuh / fused_pass1_int8.cuh,
-// template parameter STAGE): the same chunk-of-tiles grid, the same staged
-// slices, load4 / load_word, FMA and __dp4a loops and the same shared score
-// tile, so a change to pass 1 changes the probe with it. Only what follows
-// the score tile differs (CeilRows in topk_common.cuh). The TPU probes
+// template parameter STAGE): the same chunk-of-tiles grid and the same
+// staged slices and product, so a change to pass 1 changes the probe with
+// it. Only what follows the scored tile differs: in the f32/bf16 pass 1,
+// mm and mask read one accumulator, rowmax and prologue the sub-block
+// maxima (and their columns) the selection's gate computes; the int8 pass 1
+// keeps CeilRows (topk_common.cuh). The TPU probes
 // carry their sum from grid step to grid step; here each block sums the
 // probe tiles of its own chunk (a chunk holds whole probe tiles) and writes
 // one partial per (chunk, row); ceiling_reduce then adds the partials in
 // chunk order, so the result does not depend on how blocks were scheduled
 // (no float atomics) and the int stages are exact. On the TPU the BlockSpec
 // copy happens whatever the body reads; here nothing is read unless a thread
-// loads it, so the dma stage runs pass 1's loads of every slice and XORs
-// them into a word per thread, which the block writes when the host passes
-// a sink buffer: the compiler cannot drop the loads, and the host can check
-// the XOR of the words against the corpus.
+// loads it, so the dma stage stages every slice of its chunk and each thread
+// XORs the words it copied into one word, which the block writes when the
+// host passes a sink buffer: the copies cannot be dropped, and the host can
+// check the XOR of the words against the corpus.
 #include "fused_pass1.cuh"
 #include "fused_pass1_int8.cuh"
 
@@ -94,6 +97,7 @@ cudaError_t run_int8(const Call& c) {
 
 template <typename T, int TQ>
 cudaError_t dispatch_float(int stage, const Call& c) {
+  static_assert(TQ == 8 || TQ == 32 || TQ == 64, "tq");
   switch (stage) {
     case kCeilDma: return run_float<T, TQ, kCeilDma>(c);
     case kCeilMm: return run_float<T, TQ, kCeilMm>(c);
@@ -122,7 +126,7 @@ cudaError_t dispatch_int8(int stage, const Call& c) {
 
 // corpus_dtype: 0 = f32, 1 = bf16 (q is f32 [Q, D]), 2 = int8 (q is int8
 // [Q, D], cscale the column scales). stage: a Stage of topk_common.cuh other
-// than kStageSelect. tq: 8 or 32 query rows per block. int_partials: whether
+// than kStageSelect. tq: 8, 32 or 64 (f32/bf16 only) query rows per block. int_partials: whether
 // this (stage, dtype) sums in int32 (part_i) or in f32 (part_f). sink: null,
 // or [q_tiles * n_chunks * 256] words for the dma stage. Returns the first
 // CUDA error (0 on success); nothing synchronises.
@@ -131,17 +135,20 @@ extern "C" int ragfin_ceiling(const void* q, int Q, int D, const void* ct, const
                               int bn, int n_phys, int limit, int tq, int tiles_per_chunk,
                               int n_chunks, int block_tiles, int int_partials, float* part_f,
                               int* part_i, unsigned* sink, float* out, void* stream_ptr) {
-  if ((tq != 8 && tq != 32) || corpus_dtype < 0 || corpus_dtype > 2 || block_tiles < 1 ||
-      tiles_per_chunk % block_tiles != 0)
+  if ((tq != 8 && tq != 32 && (tq != 64 || corpus_dtype == 2)) || corpus_dtype < 0 ||
+      corpus_dtype > 2 || block_tiles < 1 || tiles_per_chunk % block_tiles != 0)
     return (int)cudaErrorInvalidValue;
   Call c{q,      Q,     D,      ct,    cscale, ld, tile_stride, bn, n_phys, limit, tiles_per_chunk,
          n_chunks, part_f, part_i, static_cast<cudaStream_t>(stream_ptr), CeilArgs{block_tiles, sink}};
   cudaError_t err;
   if (corpus_dtype == 0)
-    err = tq == 8 ? dispatch_float<float, 8>(stage, c) : dispatch_float<float, 32>(stage, c);
+    err = tq == 8    ? dispatch_float<float, 8>(stage, c)
+          : tq == 32 ? dispatch_float<float, 32>(stage, c)
+                     : dispatch_float<float, 64>(stage, c);
   else if (corpus_dtype == 1)
-    err = tq == 8 ? dispatch_float<__nv_bfloat16, 8>(stage, c)
-                  : dispatch_float<__nv_bfloat16, 32>(stage, c);
+    err = tq == 8    ? dispatch_float<__nv_bfloat16, 8>(stage, c)
+          : tq == 32 ? dispatch_float<__nv_bfloat16, 32>(stage, c)
+                     : dispatch_float<__nv_bfloat16, 64>(stage, c);
   else
     err = tq == 8 ? dispatch_int8<8>(stage, c) : dispatch_int8<32>(stage, c);
   if (err != cudaSuccess) return (int)err;

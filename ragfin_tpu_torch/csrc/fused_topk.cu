@@ -5,58 +5,58 @@
 // flat [D, N] or tile-major [n_tiles, D, bn], columns >= limit masked,
 // (scores [Q, k] f32 descending, ids [Q, k] int32), lower id first on ties.
 //
-// Bound on an H100: the "exact" tier must be f32-accurate, so it runs on the
-// FP32 cores (no TF32, no bf16 split). At Q = 64 and N = 1M that is
-// 2*64*1M*384 = 49 GFLOP, 0.73 ms at 67 TFLOP/s, against 1.536 GB of f32
-// corpus, 0.46 ms at 3.35 TB/s: compute bound. At Q = 1 the corpus read
-// bounds it. The "fast" tier over a bf16 corpus (queries rounded to bf16 by
-// the wrapper) multiplies bf16 values converted to f32; their products are
-// exact in f32, so it matches a bf16 product with f32 accumulation.
+// Bound on an H100 at Q = 64 and N = 1M: the corpus read, 1.536 GB of f32
+// in 0.4585 ms at 3.35 TB/s (bf16: 0.768 GB, 0.2293 ms). The "exact" tier
+// is f32-accurate on the tensor cores (3xTF32 over an f32 corpus, a three-way
+// bf16 split of the queries over a bf16 corpus): 3 * 49.2 GFLOP in 0.30 ms at
+// 495 TFLOP/s, under the bytes. The "fast" tier over a bf16 corpus (queries
+// rounded to bf16 by the wrapper) is one bf16 product with f32 accumulation.
 //
 // Design, two passes (the TPU kernel's sequential carry across grid steps
 // has no counterpart when blocks run in any order):
-//  - pass 1, grid (query tile, corpus chunk): the block keeps its TQ query
-//    rows in shared memory, walks its chunk in kTN-column tiles, scores each
-//    tile with register-blocked FMAs (thread: TQ/8 rows x 4 columns) into a
-//    shared [TQ, kTN] tile, and offers it to per-row running top-k lists in
-//    shared memory (one warp per row, ballot + insertion). Each corpus
-//    element is read from device memory once per query tile; query tiles of
-//    one chunk are neighbours in the grid, so the second read of a chunk
-//    mostly hits L2. The next slice's global loads (16-byte vectors where
-//    the layout allows) are issued before the current slice's FMAs.
+//  - pass 1 (fused_pass1.cuh), grid (query tile, corpus chunk): the block
+//    keeps its TQ query rows (8, 32 or 64, so that Q = 64 reads the corpus
+//    once) in shared memory, streams its chunk through a cp.async ring of
+//    corpus slices, scores each kTN-column tile with mma.sync, and keeps per-
+//    row running top-k lists with the two-level selection (twolevel.cuh):
+//    sub-block maxima from the accumulators gate which sub-blocks are walked
+//    at all. The chunk count is about one wave of resident blocks, so pass 2
+//    merges few lists.
 //  - pass 2 (topk_common.cuh merge_partials): a warp per row merges the
 //    chunks' partial lists.
-// Simple on purpose: no wgmma, TMA or multi-stage pipeline yet.
 #include "fused_pass1.cuh"
 
 
 using namespace ragfin;
 
-// corpus_dtype: 0 = f32, 1 = bf16. tq: 8 or 32 query rows per block.
+// corpus_dtype: 0 = f32, 1 = bf16. tq: 8, 32 or 64 query rows per block
+// (64 only where its shared memory fits: ops/topk.py _pass1_tile).
 // Returns the first CUDA error (0 on success); nothing synchronises.
 extern "C" int ragfin_fused_topk(const float* q, int Q, int D, const void* ct, int corpus_dtype,
                                  long long ld, long long tile_stride, int bn, int n_phys,
                                  int limit, int k, int tq, int tiles_per_chunk, int n_chunks,
                                  float* part_s, int* part_i, float* out_s, int* out_i,
                                  void* stream_ptr) {
-  if (k < 1 || k > kMaxK || (tq != 8 && tq != 32) || corpus_dtype < 0 || corpus_dtype > 1)
+  if (k < 1 || k > kMaxK || (tq != 8 && tq != 32 && tq != 64) || corpus_dtype < 0 ||
+      corpus_dtype > 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  cudaError_t err;
-  if (corpus_dtype == 0) {
-    err = tq == 8 ? launch_pass1<float, 8>(q, Q, D, ct, ld, tile_stride, bn, n_phys, limit, k,
-                                           tiles_per_chunk, n_chunks, part_s, part_i, stream)
-                  : launch_pass1<float, 32>(q, Q, D, ct, ld, tile_stride, bn, n_phys, limit, k,
-                                            tiles_per_chunk, n_chunks, part_s, part_i, stream);
-  } else {
-    err = tq == 8
-              ? launch_pass1<__nv_bfloat16, 8>(q, Q, D, ct, ld, tile_stride, bn, n_phys, limit,
-                                               k, tiles_per_chunk, n_chunks, part_s, part_i,
-                                               stream)
-              : launch_pass1<__nv_bfloat16, 32>(q, Q, D, ct, ld, tile_stride, bn, n_phys, limit,
-                                                k, tiles_per_chunk, n_chunks, part_s, part_i,
-                                                stream);
-  }
+  auto run = [&](auto tag, auto tq_c) {
+    using T = decltype(tag);
+    constexpr int TQ = decltype(tq_c)::value;
+    return k <= 64 ? launch_pass1<T, TQ, false, kStageSelect, 2>(
+                         q, Q, D, ct, ld, tile_stride, bn, n_phys, limit, k, tiles_per_chunk,
+                         n_chunks, part_s, part_i, stream)
+                   : launch_pass1<T, TQ, false, kStageSelect, 4>(
+                         q, Q, D, ct, ld, tile_stride, bn, n_phys, limit, k, tiles_per_chunk,
+                         n_chunks, part_s, part_i, stream);
+  };
+  auto by_tq = [&](auto tag) {
+    if (tq == 8) return run(tag, std::integral_constant<int, 8>{});
+    if (tq == 32) return run(tag, std::integral_constant<int, 32>{});
+    return run(tag, std::integral_constant<int, 64>{});
+  };
+  cudaError_t err = corpus_dtype == 0 ? by_tq(float{}) : by_tq(__nv_bfloat16{});
   if (err != cudaSuccess) return (int)err;
   return (int)launch_merge(part_s, part_i, n_chunks, Q, k, nullptr, out_s, out_i, stream);
 }

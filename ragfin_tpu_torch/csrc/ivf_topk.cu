@@ -16,8 +16,9 @@
 // Bound on an H100: the probed cells are read once per query tile,
 // q_tiles * nprobe * cell * D * itemsize bytes (Q = 8, nprobe = 32,
 // cell = 2048, D = 384, f32: 101 MB, 30 us at 3.35 TB/s), against
-// 2 * Qp * nprobe * cell * D operations on the FP32 cores for the exact
-// tier (0.40 GFLOP, 6 us at 67 TFLOP/s): bytes bound at small Q.
+// 2 * Qp * nprobe * cell * D operations (0.40 GFLOP; the f32-accurate
+// product on the tensor cores, 3xTF32, takes 2.4 us at 495 TFLOP/s): bytes
+// bound.
 //
 // Design. The TPU kernel's grid is (probe position, query tile), run in
 // order on one core, with the running top-k carried in VMEM from one probe
@@ -25,15 +26,17 @@
 // grow along the walk and a strict > keeps the lowest id on ties. Blocks
 // run in any order here, so nothing is carried: the cells ARE the
 // tile-major corpus layout of fused_topk.cu (bn = cell, a column's global
-// index = its permuted id), so pass 1 is that kernel's pass 1 with the
-// block's tile run taken from the probe table (ProbeWalk, topk_common.cuh):
-// block (query sub-tile, probe position x split) scores its TQ rows against
-// its share of one probed cell and writes a sorted partial list; pass 2
+// index = its permuted id), so pass 1 is that kernel's pass 1
+// (fused_pass1.cuh: mma.sync products, a cp.async ring, the two-level
+// selection) with the block's tile run taken from the probe table
+// (ProbeWalk, topk_common.cuh): block (query sub-tile, probe position x
+// split) scores its TQ rows against its share of one probed cell, in
+// ascending column order, and writes a sorted partial list; pass 2
 // (merge_partials) merges the nprobe * splits lists of each row. better()
 // is a strict total order on (score, permuted id), so the result is the
 // ascending walk's whatever order the blocks ran in. `splits` cuts a cell
 // over several blocks so that a single query tile still fills the card.
-// Simple on purpose: FP32 FMAs and __dp4a, no wgmma or TMA yet.
+// The int8 route keeps its own pass 1 (fused_pass1_int8.cuh, __dp4a).
 #include "fused_pass1.cuh"
 #include "fused_pass1_int8.cuh"
 
@@ -41,8 +44,9 @@ using namespace ragfin;
 
 // dtype: 0 = f32 cells, 1 = bf16 cells (q is f32 [Qp, D]; qscale and cscale
 // unused), 2 = int8 cells (q is int8 [Qp, D], qscale f32 [Qp], cscale f32
-// [n_cells * cell]). Qp is a multiple of block_q, block_q of tq (8 or 32),
-// cell of 128 * splits. probe: [Qp / block_q, nprobe] int32. part_*:
+// [n_cells * cell]). Qp is a multiple of block_q, block_q of tq (8 or 32;
+// the probed walk's 64-row blocks would spill registers), cell of
+// 128 * splits. probe: [Qp / block_q, nprobe] int32. part_*:
 // [nprobe * splits, Qp, k]. Returns the first CUDA error (0 on success);
 // nothing synchronises.
 extern "C" int ragfin_ivf_topk(const void* q, const float* qscale, int Qp, int D,
@@ -68,21 +72,25 @@ extern "C" int ragfin_ivf_topk(const void* q, const float* qscale, int Qp, int D
   const long long ld = cell, tile_stride = (long long)D * cell;
   const float* qf = static_cast<const float*>(q);
   const int8_t* q8 = static_cast<const int8_t*>(q);
+  auto run = [&](auto tag, auto tq_c) {
+    using T = decltype(tag);
+    constexpr int TQ = decltype(tq_c)::value;
+    return k <= 64 ? launch_pass1<T, TQ, true, kStageSelect, 2>(
+                         qf, Qp, D, cells, ld, tile_stride, cell, n_phys, n_valid, k, per_chunk,
+                         n_chunks, part_s, part_i, stream, walk)
+                   : launch_pass1<T, TQ, true, kStageSelect, 4>(
+                         qf, Qp, D, cells, ld, tile_stride, cell, n_phys, n_valid, k, per_chunk,
+                         n_chunks, part_s, part_i, stream, walk);
+  };
+  auto by_tq = [&](auto tag) {
+    return tq == 8 ? run(tag, std::integral_constant<int, 8>{})
+                   : run(tag, std::integral_constant<int, 32>{});
+  };
   cudaError_t err;
   if (dtype == 0) {
-    err = tq == 8 ? launch_pass1<float, 8, true>(qf, Qp, D, cells, ld, tile_stride, cell, n_phys,
-                                                 n_valid, k, per_chunk, n_chunks, part_s, part_i,
-                                                 stream, walk)
-                  : launch_pass1<float, 32, true>(qf, Qp, D, cells, ld, tile_stride, cell,
-                                                  n_phys, n_valid, k, per_chunk, n_chunks,
-                                                  part_s, part_i, stream, walk);
+    err = by_tq(float{});
   } else if (dtype == 1) {
-    err = tq == 8 ? launch_pass1<__nv_bfloat16, 8, true>(qf, Qp, D, cells, ld, tile_stride, cell,
-                                                         n_phys, n_valid, k, per_chunk, n_chunks,
-                                                         part_s, part_i, stream, walk)
-                  : launch_pass1<__nv_bfloat16, 32, true>(qf, Qp, D, cells, ld, tile_stride,
-                                                          cell, n_phys, n_valid, k, per_chunk,
-                                                          n_chunks, part_s, part_i, stream, walk);
+    err = by_tq(__nv_bfloat16{});
   } else {
     const int8_t* c8 = static_cast<const int8_t*>(cells);
     err = tq == 8 ? launch_pass1_int8<8, true>(q8, Qp, D, c8, cscale, ld, tile_stride, cell,

@@ -1,7 +1,11 @@
-// Shared pieces of the fused cosine top-k kernels (fused_topk.cu,
-// fused_topk_int8.cu): the running top-k lists, the warp-wide insertion,
-// and the pass-2 merge of per-chunk partial lists; and what the ceiling
-// probes (ceiling.cu) put in the selection's place.
+// Shared pieces of the top-k kernels: better(), the order every list keeps;
+// the pass-2 merge of per-chunk partial lists (fused_topk.cu,
+// fused_topk_int8.cu, ivf_topk.cu); the chunk and probe walks (tile_base,
+// ProbeWalk); the shared-memory lists, warp-wide insertion and select_tile
+// of the int8 pass 1 (fused_pass1_int8.cuh); and the ceiling stages
+// (ceiling.cu; CeilRows for the int8 pass 1). The f32/bf16 pass 1
+// (fused_pass1.cuh) selects with twolevel.cuh, whose lists live in
+// registers.
 //
 // Order contract (ragfin_tpu/ops/topk.py): scores descending, the lower id
 // wins a tie, empty slots hold score -inf and id INT32_MAX. A -inf score
@@ -32,8 +36,9 @@ __device__ __forceinline__ bool better(float s, int i, float s2, int i2) {
 }
 
 // Insert (s, id) into the sorted list S/I of length k (shared memory). All
-// 32 lanes call it with the same candidate, which the caller has checked
-// beats the list's last entry.
+// 32 lanes call it with the same candidate. A candidate that does not beat
+// the list's last entry lands at position k, which is no slot: the list is
+// unchanged.
 __device__ __forceinline__ void warp_insert(float* S, int* I, int k, float s, int id) {
   const int lane = threadIdx.x & 31;
   int pos = 0;
@@ -60,7 +65,7 @@ __device__ __forceinline__ void warp_insert(float* S, int* I, int k, float s, in
     if (j < k && j > pos) {
       S[j] = vs[t];
       I[j] = vi[t];
-    } else if (j == pos) {
+    } else if (j == pos && j < k) {
       S[j] = s;
       I[j] = id;
     }
@@ -245,7 +250,8 @@ enum Stage : int {
 
 struct CeilArgs {
   int block_tiles = 1;          // kTN tiles per probe tile; a chunk holds whole probe tiles
-  unsigned* sink = nullptr;     // dma: XOR of every word a thread loaded, [blocks, kThreads];
+  unsigned* sink = nullptr;     // dma: XOR of every word a thread loaded, one word per thread
+                                // ([blocks, 256] int8 pass 1, [blocks, 512] f32/bf16 pass 1);
                                 // written only when non-null, so the loads cannot be dropped
 };
 

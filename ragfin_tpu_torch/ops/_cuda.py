@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -46,6 +47,7 @@ KERNELS = {
         "ragfin_ceiling",
         [_P, _I, _I, _P, _P, _I, _I, _LL, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     ),
+    "merge_cases": ("ragfin_merge_case", [_P, _P, _I, _P]),
 }
 
 _lock = threading.Lock()
@@ -90,6 +92,8 @@ def _finish(name: str, started) -> None:
     BUILD_LOGS[name] = log
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+    with open(out + ".ptxas", "w") as f:
+        f.write(log)
     os.replace(tmp, out)
 
 
@@ -103,6 +107,16 @@ def build_all() -> dict[str, str]:
     for name in KERNELS:
         kernel(name)
     return dict(BUILD_LOGS)
+
+
+def build_log(name: str) -> str:
+    """The nvcc/ptxas log of library ``name``'s current build (building it
+    first if needed), also when an earlier process built it."""
+    kernel(name)
+    if name in BUILD_LOGS:
+        return BUILD_LOGS[name]
+    with open(_target(name)[1] + ".ptxas") as f:
+        return f.read()
 
 
 def kernel(name: str):
@@ -120,6 +134,42 @@ def kernel(name: str):
             fn.restype = ctypes.c_int
             _loaded[name] = fn
     return _loaded[name]
+
+
+def ptxas_report(log: str) -> list[tuple[str, str]]:
+    """(kernel, "N registers, S bytes spill stores, L bytes spill loads, ...")
+    for every entry function in an ``nvcc -Xptxas -v`` log, names demangled
+    where ``c++filt`` is installed."""
+    rows, current, props = [], None, {}
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            current, props = m.group(1), {}
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            props["spills"] = f"{m.group(1)} bytes spill stores, {m.group(2)} bytes spill loads"
+        m = re.search(r"Used (\d+) registers(.*)", line)
+        if m:
+            extra = m.group(2).strip(", ")
+            rows.append((current, f"{m.group(1)} registers, {props.get('spills', 'spills not reported')}"
+                         + (f", {extra}" if extra else "")))
+            current = None
+    names = [name for name, _ in rows]
+    filt = shutil.which("c++filt")
+    if filt and names:
+        out = subprocess.run([filt], input="\n".join(names), capture_output=True, text=True)
+        if out.returncode == 0 and len(out.stdout.splitlines()) == len(names):
+            names = out.stdout.splitlines()
+    return [(name, summary) for name, (_, summary) in zip(names, rows)]
+
+
+def spills(report: list[tuple[str, str]]) -> list[str]:
+    """The kernels of a ptxas_report that spill registers."""
+    return [name for name, summary in report
+            if re.search(r"[1-9]\d* bytes spill (stores|loads)", summary)]
 
 
 def check(err: int, name: str) -> None:

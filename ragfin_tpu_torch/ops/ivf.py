@@ -46,6 +46,7 @@ from .topk import (
     _check_precision,
     _fused_select,
     _int_scores,
+    _pass1_tile,
     _select,
 )
 
@@ -449,7 +450,11 @@ def pruned_topk(
         qscale = qscale.float().contiguous()
         if qscale.numel() != qp:
             raise ValueError("qscale must hold one scale per query row")
-    tq = 32 if block_q % 32 == 0 else 8
+    if int8:
+        tq = 32 if block_q % 32 == 0 else 8
+    else:
+        fits = [t for t in (8, 32) if block_q % t == 0]
+        tq = _pass1_tile(block_q, d, cells.element_size(), allowed=fits)
     splits = _splits(qp // tq, nprobe, cell // _KERNEL_TILE_N, cells.device)
     part_s = torch.empty((nprobe * splits, qp, k), dtype=torch.float32, device=cells.device)
     part_i = torch.empty((nprobe * splits, qp, k), dtype=torch.int32, device=cells.device)

@@ -269,13 +269,58 @@ def fused_topk_int8_plain(queries, corpus_i8, scales, k, n_valid=None):
 
 
 def _launch_plan(q: int, n: int, tq: int, device: torch.device) -> tuple[int, int]:
-    """(tiles per chunk, chunk count) of pass 1: about four blocks per SM
-    over all query tiles, and at least two column tiles per chunk so each
-    block's list fill is shared by some scoring work."""
+    """(tiles per chunk, chunk count) of the int8 pass 1: about four blocks
+    per SM over all query tiles, and at least two column tiles per chunk so
+    each block's list fill is shared by some scoring work."""
     n_tiles = -(-n // _KERNEL_TILE_N)
     q_tiles = -(-q // tq)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     per_chunk = max(2, -(-n_tiles * q_tiles // (4 * sms)))
+    return per_chunk, -(-n_tiles // per_chunk)
+
+
+# Shared memory of one f32/bf16 pass-1 block (csrc/fused_pass1.cuh
+# pass1_smem, which this mirrors): queries [TQ, Dp + pad] f32, a ring of
+# 16 KB corpus slices (rows padded to 136 columns; three slices at TQ = 64,
+# else four), two buffers of sub-block maxima and their columns, ceiling
+# sums, and for the selection two [TQ, 132] score tiles and each row's k-th
+# score (the lists themselves live in the walker warps' registers).
+_SMEM_LIMIT = 232448  # dynamic shared memory one block may use on an H100
+
+
+def _pass1_smem(tq: int, d: int, itemsize: int, select: bool = True) -> int:
+    dk, pad = (32, 4) if itemsize == 4 else (64, 8)
+    dp = -(-d // dk) * dk
+    wc = 8 if tq == 8 else 4
+    stages = 3 if tq == 64 else 4
+    size = 4 * tq * (dp + pad) + itemsize * stages * dk * (_KERNEL_TILE_N + 8) + 2 * tq * wc * 8
+    size += tq * 12
+    if select:
+        size += 4 * tq * (2 * (_KERNEL_TILE_N + 4) + 1)
+    return size
+
+
+def _pass1_tile(nq: int, d: int, itemsize: int, select: bool = True, allowed=(8, 32, 64)) -> int:
+    """Query rows per block of the f32/bf16 pass 1: the widest tile that
+    ``nq`` fills (64 reads the corpus once at Q = 64) and whose shared memory
+    fits."""
+    want = 64 if nq > 32 else 32 if nq > 8 else 8
+    for tq in sorted(allowed, reverse=True):
+        if tq <= want and _pass1_smem(tq, d, itemsize, select) <= _SMEM_LIMIT:
+            return tq
+    raise ValueError(f"D={d}: a pass-1 block's shared memory exceeds {_SMEM_LIMIT} bytes")
+
+
+def _pass1_plan(q: int, n: int, tq: int, device: torch.device) -> tuple[int, int]:
+    """(tiles per chunk, chunk count) of the f32/bf16 pass 1: one wave of
+    blocks over all query tiles (a block of 512 threads holds its SM alone,
+    csrc/fused_pass1.cuh __launch_bounds__), so pass 2 merges few lists, and
+    at least two column tiles per chunk."""
+    n_tiles = -(-n // _KERNEL_TILE_N)
+    q_tiles = -(-q // tq)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    chunks = max(1, sms // q_tiles)
+    per_chunk = max(2, -(-n_tiles // chunks))
     return per_chunk, -(-n_tiles // per_chunk)
 
 
@@ -333,8 +378,8 @@ def cosine_topk_fused(
     if nq == 0 or n == 0:
         return _empty_result(nq, k, q.device)
     fn = _cuda.kernel("fused_topk")
-    tq = 8 if nq <= 8 else 32
-    per_chunk, chunks = _launch_plan(nq, n, tq, q.device)
+    tq = _pass1_tile(nq, d, corpus_t.element_size())
+    per_chunk, chunks = _pass1_plan(nq, n, tq, q.device)
     part_s = torch.empty((chunks, nq, k), dtype=torch.float32, device=q.device)
     part_i = torch.empty((chunks, nq, k), dtype=torch.int32, device=q.device)
     out_s = torch.empty((nq, k), dtype=torch.float32, device=q.device)

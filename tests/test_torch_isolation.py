@@ -1,5 +1,6 @@
 """The port stands alone: ``ragfin_tpu_torch``, ``chip_smoke.py``,
-``bench_torch.py`` and ``scripts/kernel_probe_torch.py`` import neither JAX
+``bench_torch.py``, ``scripts/kernel_probe_torch.py`` and
+``scripts/mosaic_bisect_torch.py`` import neither JAX
 nor anything of the JAX package, and the port's entry points refuse to run on
 the CPU unless the caller asks for it."""
 
@@ -21,6 +22,7 @@ def _port_files():
         os.path.join(ROOT, "chip_smoke.py"),
         os.path.join(ROOT, "bench_torch.py"),
         os.path.join(ROOT, "scripts", "kernel_probe_torch.py"),
+        os.path.join(ROOT, "scripts", "mosaic_bisect_torch.py"),
     ]
     for dirpath, _, names in os.walk(PKG):
         out += [os.path.join(dirpath, n) for n in sorted(names) if n.endswith(".py")]
