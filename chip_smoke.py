@@ -4,22 +4,23 @@
     python3 chip_smoke.py            # the full check, as a release gate
     python3 chip_smoke.py --kernels  # phases 1, 2, 4, 6 and 7 only (build, kernels alone)
     python3 chip_smoke.py --graph    # phases 1, 4 and 5 only (build, first-k, graph store)
-    python3 chip_smoke.py --sweep    # also the IVF grid-rule sweep of phase 6
+    python3 chip_smoke.py --sweep    # also the IVF and int8 grid-rule sweeps (phases 6, 2)
 
 Phases (any failure exits nonzero, and no phase carries on past one):
 
 1. Device and build: the card's name and power limit from nvidia-smi, then
    every kernel in ragfin_tpu_torch/csrc/ built with nvcc (one process per
    source, all started together), and the ptxas line (registers, spills) of
-   every f32/bf16 pass-1 instantiation and merge case; a spill in a pass-1
-   instantiation the main path runs fails. Then the merge cases, the
+   every pass-1 instantiation (f32, bf16, int8) and merge case; a spill in a
+   pass-1 instantiation the main path runs (the f32/bf16 selection at
+   k <= 64, every int8 selection) fails. Then the merge cases, the
    two-level selection's primitives: scripts/mosaic_bisect_torch.py as a
    user runs it, with the kernel's counter at 0 just before and read just
    after, and each case bitwise against its plain version, timed.
 2. Kernels against their plain PyTorch versions, on seeded unit embeddings
    at D = 384, N = 1,000,000, n_valid not a multiple of any tile, for
    Q in {1, 8, 64, 1024} and k in {3, 64, 70}: f32 "exact", bf16 "exact"
-   (f32 queries), bf16 "fast", int8. The f32/bf16 ids must also equal
+   (f32 queries), bf16 "fast", int8 (flat and tile-major). The f32/bf16 ids must also equal
    those of an f64 oracle on the same inputs outside tie bands.
    Duplicated corpus columns make exact ties, which must come back lowest
    id first. f32/bf16 scores agree within 1e-5 (the kernel and cuBLAS sum in
@@ -27,7 +28,9 @@ Phases (any failure exits nonzero, and no phase carries on past one):
    exact). Ids must be equal wherever neighbouring scores differ by more
    than the tolerance. Each kernel is timed with CUDA events (median of 20
    runs after warm-up) beside its plain version, torch.matmul + torch.topk
-   (a yardstick only), and the card's bound for the same work.
+   (int8: torch._int_mm + torch.topk, the queries padded to 32 rows where
+   _int_mm needs more than 16; a yardstick only), and the card's bound for
+   the same work.
 3. Main path: RagFinEngine (trained encoder, f32 index) over 131,072
    generated filings answers questions through VectorRAG.search and
    search_and_answer, some concurrently through the batcher. The filings
@@ -62,14 +65,16 @@ Phases (any failure exits nonzero, and no phase carries on past one):
    nprobe 32: the pruned kernel against its plain version for f32 "exact",
    bf16 "fast" (within 1e-5, ids equal outside tie bands) and int8
    (bitwise), and at nprobe = n_cells against the exact fused tier; timed
-   beside a gather of the probed cells + torch.matmul + torch.topk. With
+   beside a gather of the probed cells + torch.matmul + torch.topk (int8:
+   torch._int_mm per query tile). With
    --sweep the wrapper's grid rule (blocks per probed cell) is timed against
    fixed values.
 7. Ceiling kernel alone (ops/ceiling.py, pass 1 of the fused kernels without
    the selection): at N = 1,000,000 every stage of the three probe families
    (bf16 Q = 128 block_n 2048 flat and tile-major; bf16 Q = 64 block_n 6144
    with the n_valid mask and an arg-max tie built on purpose; int8 Q = 1024
-   block_n 8192) against ceiling_plain on the card: int stages bitwise, float
+   block_n 8192, with torch._int_mm beside mmint) against ceiling_plain on
+   the card: int stages bitwise, float
    stages within 1e-4 of the largest sum; the dma stage's loads are checked
    by the XOR of the loaded words; then timed. The same for the bench path's
    own call (bf16 Q = 64, N = 1,000,000 not padded, block_n the fused kernel's
@@ -127,6 +132,38 @@ BATCH_TOL = 1e-3
 # pass 1: three TF32 products per multiply-add.
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12, "tf32x3": 495e12 / 3}
 PEAK_BYTES = 3.35e12
+# The card's name and power limit (nvidia-smi), printed beside every time.
+CARD = "card not read"
+
+
+def int_mm_row_major(torch, device) -> bool:
+    """Whether torch._int_mm takes a row-major [K, N] int8 second operand on
+    this card (cuBLASLt may want it column-major)."""
+    a = torch.zeros((32, 64), dtype=torch.int8, device=device)
+    try:
+        torch._int_mm(a, torch.zeros((64, 64), dtype=torch.int8, device=device))
+    except RuntimeError:
+        return False
+    return True
+
+
+def int_mm_operand(torch, ct8):
+    """The [D, N] int8 operand of the torch._int_mm yardstick and its layout:
+    the corpus as stored where _int_mm takes it, else a column-major copy
+    made here, outside any timed region."""
+    if int_mm_row_major(torch, ct8.device):
+        return ct8, "the corpus as stored, row-major [D, N]"
+    return ct8.T.contiguous().T, "a column-major copy of the corpus"
+
+
+def int_mm(torch, q8, b):
+    """torch._int_mm(q8, b) with q8 padded to 32 rows where it has 16 or
+    fewer (_int_mm needs more than 16); the padding is inside the call, so
+    its time counts. Returns the [Q, N] int32 product."""
+    q_n = q8.shape[0]
+    if q_n <= 16:
+        q8 = torch.nn.functional.pad(q8, (0, 0, 0, 32 - q_n))
+    return torch._int_mm(q8, b)[:q_n]
 
 
 def fail(msg: str) -> int:
@@ -200,7 +237,7 @@ def f64_oracle(torch, q, corpus_t, k, n_valid, bf16_queries=False):
     return best_s.float().cpu().numpy(), best_i.cpu().numpy()
 
 
-def kernel_phase(torch, topk) -> dict:
+def kernel_phase(torch, topk, sweep: bool = False) -> dict:
     import numpy as np
 
     dev = torch.device("cuda")
@@ -217,10 +254,12 @@ def kernel_phase(torch, topk) -> dict:
     ct32 = corpus.T.contiguous()
     del corpus
     ct16 = ct32.to(torch.bfloat16)
-    from ragfin_tpu_torch.ops.quantize import quantize_corpus_t
+    from ragfin_tpu_torch.ops.quantize import quantize_corpus_t, quantize_queries
 
     ct8, sc8 = quantize_corpus_t(ct32)
     tiled = topk.tile_corpus_t(ct32, 2048)
+    tiled8, tiled_sc8 = topk.tile_corpus_t(ct8, 2048), topk.tile_scales(sc8, 2048)
+    b8, b8_layout = int_mm_operand(torch, ct8)
     qgen = torch.Generator(device=dev).manual_seed(SEED + 1)
     q_all = torch.randn((1024, D), generator=qgen, device=dev)
     q_all = q_all / torch.linalg.vector_norm(q_all, dim=1, keepdim=True)
@@ -263,22 +302,26 @@ def kernel_phase(torch, topk) -> dict:
             if not ids_agree(ps, pi, i, F32_TOL):
                 raise AssertionError(f"{label} Q={q_n} k={k}: ids differ outside tie bands")
             check_ties(np, label, q_n, k, s, i, src, n)
-        s, i = i8(q, ct8, sc8, k, n_valid=n_valid)
-        torch.cuda.synchronize()
-        ps, pi = topk.fused_topk_int8_plain(q, ct8, sc8, k, n_valid=n_valid)
-        s, i, ps, pi = (x.cpu().numpy() for x in (s, i, ps, pi))
-        errs["fused_topk_int8"] = max(errs["fused_topk_int8"], score_err(s, ps))
-        if not (np.array_equal(s, ps) and np.array_equal(i, pi)):
-            raise AssertionError(f"int8 Q={q_n} k={k}: not bitwise equal to the plain version")
-        check_ties(np, "int8", q_n, k, s, i, src, n)
+        for label, c8, s8 in (("int8", ct8, sc8), ("int8 tile-major", tiled8, tiled_sc8)):
+            s, i = i8(q, c8, s8, k, n_valid=n_valid)
+            torch.cuda.synchronize()
+            ps, pi = topk.fused_topk_int8_plain(q, c8, s8, k, n_valid=n_valid)
+            s, i, ps, pi = (x.cpu().numpy() for x in (s, i, ps, pi))
+            errs["fused_topk_int8"] = max(errs["fused_topk_int8"], score_err(s, ps))
+            if not (np.array_equal(s, ps) and np.array_equal(i, pi)):
+                raise AssertionError(f"{label} Q={q_n} k={k}: not bitwise equal to the plain version")
+            check_ties(np, label, q_n, k, s, i, src, n)
         print(f"kernel check Q={q_n} k={k}: f32/tile-major/bf16 exact/bf16 fast within {F32_TOL} "
               f"of plain, ids equal to the f64 oracle outside tie bands, "
-              f"int8 bitwise equal", flush=True)
+              f"int8 flat and tile-major bitwise equal", flush=True)
 
     # Timing at the main path's widths: k = 64 (f32) and 70 (int8 shortlist).
+    print(f"int8 library call: torch._int_mm on {b8_layout}", flush=True)
     rows = {}
     for q_n in (1, 8, 64):
         q = q_all[:q_n].contiguous()
+        int8_library = lambda: torch.topk(  # noqa: E731
+            int_mm(torch, quantize_queries(q)[0], b8).float() * sc8, 70)
         for name, corpus_dtype, ops_type, k, run, plain, lib in (
             ("fused_topk", "float32", "tf32x3", 64,
              lambda: f32(q, ct32, 64, n_valid=n_valid),
@@ -291,7 +334,7 @@ def kernel_phase(torch, topk) -> dict:
             ("fused_topk_int8", "int8", "int8", 70,
              lambda: i8(q, ct8, sc8, 70, n_valid=n_valid),
              lambda: topk.fused_topk_int8_plain(q, ct8, sc8, 70, n_valid=n_valid),
-             None),
+             int8_library),
         ):
             ms = time_ms(torch, run)
             plain_ms = time_ms(torch, plain)
@@ -301,13 +344,39 @@ def kernel_phase(torch, topk) -> dict:
                                      bound_ms=b_ms, bound_by=b_by, k=k)
             print(f"kernel {name} Q={q_n} N={n} k={k}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                   f"library {'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
-                  f"bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of bound", flush=True)
+                  f"bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of bound [{CARD}]", flush=True)
     for q_n, label, fn in (
         (1, "fused_topk f32", lambda q: f32(q, ct32, 64, n_valid=n_valid)),
         (64, "fused_topk f32", lambda q: f32(q, ct32, 64, n_valid=n_valid)),
         (64, "fused_topk_int8", lambda q: i8(q, ct8, sc8, 70, n_valid=n_valid)),
     ):
         profile_breakdown(torch, label, q_n, lambda: fn(q_all[:q_n].contiguous()))
+    if sweep:
+        # The int8 wrapper's rows per block (topk._tile, 32 below
+        # topk._INT8_WIDE_FROM rows, else 64) against the other choice, in
+        # turns (rule, other, other, rule); equal outputs.
+        rule = topk._INT8_WIDE_FROM
+        try:
+            for q_n in (64, 128, 1024):
+                q = q_all[:q_n].contiguous()
+                want = i8(q, ct8, sc8, 70, n_valid=n_valid)
+                picked = topk._tile(q_n, D, 1)
+                other = 64 if picked == 32 else 32
+                times = {picked: [], other: []}
+                for rows_per_block in (picked, other, other, picked):
+                    topk._INT8_WIDE_FROM = 0 if rows_per_block == 64 else 1 << 30
+                    got = i8(q, ct8, sc8, 70, n_valid=n_valid)
+                    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                        raise AssertionError(f"int8 Q={q_n}: {rows_per_block} rows a block give "
+                                             "another result")
+                    times[rows_per_block].append(
+                        time_ms(torch, lambda: i8(q, ct8, sc8, 70, n_valid=n_valid)))
+                topk._INT8_WIDE_FROM = rule
+                print(f"fused_topk_int8 Q={q_n} k=70 by rows per block (the wrapper picks "
+                      f"{picked}): " + ", ".join(f"{w}: " + " / ".join(f"{t:.4f}" for t in ts) + " ms"
+                                                for w, ts in times.items()) + f" [{CARD}]", flush=True)
+        finally:
+            topk._INT8_WIDE_FROM = rule
     # The dispatcher's threshold (topk.FUSED_MIN_N): fused kernel against
     # the dense tier (cuBLAS f32 product + stable sort) around it.
     for n_cut in (16384, 65536, 131072, 262144):
@@ -321,8 +390,6 @@ def kernel_phase(torch, topk) -> dict:
         print(f"threshold N={n_cut} k=64: " + "; ".join(line), flush=True)
     # Stage ladder: pass 1 of each fused kernel with the selection replaced
     # by the ceiling stages (same grid: the probe tile is the kernel's chunk).
-    from ragfin_tpu_torch.ops.quantize import quantize_queries
-
     q64 = q_all[:64].contiguous()
     ladders = {}
     for label, corpus, scales, probe_q, run in (
@@ -390,7 +457,7 @@ def stage_ladder(torch, label, probe_q, corpus, scales, n_valid, run) -> dict:
     C.ceiling.launches = 0
     print(f"stage ladder {label} Q={q_n} N={n} n_valid={n_valid} block_n={block_n} "
           f"(every stage equal to plain, max |err| {err:.3g}): "
-          + ", ".join(f"{k} {v:.4f} ms" for k, v in out.items()), flush=True)
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in out.items()) + f" [{CARD}]", flush=True)
     out["max_abs_err"] = err
     return out
 
@@ -424,7 +491,8 @@ def ceiling_phase(torch, topk) -> dict:
     n = N_KERNEL
     results, max_err = {}, 0.0
 
-    def run_family(family, q, corpus, scales, block_n, n_valid, stages, lib_stage=None):
+    def run_family(family, q, corpus, scales, block_n, n_valid, stages, lib_stage=None,
+                   library=None):
         nonlocal max_err
         dtype = str(corpus.dtype).replace("torch.", "")
         width = corpus.shape[-1] * (corpus.shape[0] if corpus.dim() == 3 else 1)
@@ -437,7 +505,9 @@ def ceiling_phase(torch, topk) -> dict:
             ms = time_ms(torch, call)
             plain_ms = time_ms(torch, plain, runs=3, warmup=1)
             lib_ms = None
-            if stage == lib_stage:
+            if stage == lib_stage and library is not None:
+                lib_ms = time_ms(torch, library)
+            elif stage == lib_stage:
                 flat = topk._untile(corpus)
                 lib_ms = time_ms(torch, lambda: torch.matmul(q, flat))
             b_ms, b_by = ceiling_bound(q.shape[0], width, dtype, stage)
@@ -448,7 +518,7 @@ def ceiling_phase(torch, topk) -> dict:
                   f"library {'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound {b_ms:.4f} ms "
                   f"({b_by}), {b_ms / ms:.1%} of bound, one corpus read per call = "
                   f"{read_gbs:.0f} GB/s, |err| {err:.3g} of {scale:.3g}"
-                  f"{' (bitwise)' if exact else ''}", flush=True)
+                  f"{' (bitwise)' if exact else ''} [{CARD}]", flush=True)
 
     def read_check(family, q, corpus, block_n):
         # The dma stage's loads are live: the XOR of the words its blocks
@@ -499,8 +569,16 @@ def ceiling_phase(torch, topk) -> dict:
     c8, cs = quantize_corpus_t(normal_bf16((D, -(-n // bn) * bn), SEED + 11, dev).float())
     gen = torch.Generator(device=dev).manual_seed(SEED + 12)
     q8 = torch.randint(-127, 127, (1024, D), generator=gen, device=dev, dtype=torch.int8)
+    b8, b8_layout = int_mm_operand(torch, c8)
+    want = int_mm(torch, q8, b8)[:, ::bn].sum(dim=1, dtype=torch.int32)
+    if not torch.equal(want.float(), C.ceiling_plain(q8, c8, "mmint", bn, n_valid=n)):
+        raise AssertionError("torch._int_mm does not compute the mmint stage's products")
+    print(f"ceiling int8 library call: torch._int_mm on {b8_layout} (its column 0 of each "
+          "probe tile summed equals the mmint stage)", flush=True)
     run_family("int8 Q=1024 bn=8192", q8, c8, cs, bn, n,
-               ("dma", "mmint", "rowmaxint", "mm", "rowmax", "prologue"))
+               ("dma", "mmint", "rowmaxint", "mm", "rowmax", "prologue"), lib_stage="mmint",
+               library=lambda: torch._int_mm(q8, b8))
+    del b8, want
     read_check("int8 Q=1024 bn=8192", q8, c8, bn)
     del c8, cs, q8
     # The bench path's call (bench_torch.py at BENCH_Q = 64, bf16, which phase
@@ -626,9 +704,10 @@ def merge_phase(torch, here: str) -> dict:
 
 
 def pass1_ptxas(_cuda) -> None:
-    """The ptxas line of every f32/bf16 pass-1 instantiation and merge case;
-    a spill in an instantiation the main path runs (selection, k <= 64)
-    fails."""
+    """The ptxas line of every pass-1 instantiation (f32, bf16, int8) and
+    merge case; a spill in an instantiation the main path runs fails: the
+    f32/bf16 selection at k <= 64, and every int8 selection (the int8
+    shortlist is k = 70)."""
     import re
 
     bad = []
@@ -640,7 +719,9 @@ def pass1_ptxas(_cuda) -> None:
                 continue
             short = re.sub(r"\([^()]*\)$", "", kernel)  # without the parameter list
             print(f"ptxas {name}: {short}: {summary}", flush=True)
-            if kernel in spilled and re.search(r"fused_topk_pass1<[^>]*, 0, 2>", kernel):
+            main = re.search(r"fused_topk_pass1<[^>]*, 0, 2>", kernel) or \
+                re.search(r"fused_topk_pass1<signed char, [^>]*, 0, \d>", kernel)
+            if kernel in spilled and main:
                 bad.append(short)
     if bad:
         raise AssertionError(f"main-path pass-1 instantiations spill registers: {bad}")
@@ -847,6 +928,7 @@ def ivf_phase(torch, topk, ivf, sweep: bool = False) -> dict:
     idx8 = idx32._replace(cells=tiles(c8, D), scales=tiles(sc8, 1))
     del flat, c8, sc8
 
+    ivf_row_major = int_mm_row_major(torch, dev)
     tiers = (("f32 exact", idx32, "exact", "float32", "tf32x3"),
              ("bf16 fast", idx16, "fast", "bfloat16", "bfloat16"),
              ("int8", idx8, "fast", "int8", "int8"))
@@ -879,22 +961,34 @@ def ivf_phase(torch, topk, ivf, sweep: bool = False) -> dict:
             ms = time_ms(torch, lambda: ivf.pruned_topk(*args, IVF_K, IVF_BLOCK_Q))
             plain_ms = time_ms(torch, lambda: ivf.pruned_topk_plain(*args, IVF_K, IVF_BLOCK_Q),
                                runs=5, warmup=1)
-            lib_ms = None
             if index.scales is None:
                 qt = qin.to(index.cells.dtype).reshape(-1, 1, IVF_BLOCK_Q, D)
 
                 def library():
                     sc = torch.matmul(qt, index.cells[probe.long()])  # [tiles, nprobe, block_q, cell]
                     return torch.topk(sc.permute(0, 2, 1, 3).reshape(qin.shape[0], -1), IVF_K)
-
-                lib_ms = time_ms(torch, library, runs=5, warmup=1)
+            else:
+                def library():
+                    # Per query tile: gather the probed cells into the [D, n]
+                    # operand (the layout int_mm_operand found), one _int_mm,
+                    # the row then the column scale, torch.topk.
+                    out = []
+                    for t, pr in enumerate(probe.long()):
+                        rows_t = slice(t * IVF_BLOCK_Q, (t + 1) * IVF_BLOCK_Q)
+                        cells = index.cells[pr]  # [nprobe, D, cell]
+                        b = (cells.permute(1, 0, 2).reshape(D, -1) if ivf_row_major
+                             else cells.permute(0, 2, 1).reshape(-1, D).T)
+                        sc = int_mm(torch, qin[rows_t], b).float() * qs[rows_t] * \
+                            index.scales[pr].reshape(1, -1)
+                        out.append(torch.topk(sc, IVF_K))
+                    return out
+            lib_ms = time_ms(torch, library, runs=5, warmup=1)
             b_ms, b_by = ivf_bound(qin.shape[0], IVF_NPROBE, IVF_CELL, corpus_dtype, ops_type)
             rows[(label, q_n)] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                                       bound_by=b_by)
             print(f"kernel ivf_topk[{label}] Q={q_n} N={n} nprobe={IVF_NPROBE} k={IVF_K}: "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-                  f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound {b_ms:.4f} ms "
-                  f"({b_by}), {b_ms / ms:.1%} of bound", flush=True)
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
+                  f"bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of bound [{CARD}]", flush=True)
         print(f"IVF check Q={q_n}: f32 and bf16 within {F32_TOL} of the plain version, "
               f"int8 bitwise equal", flush=True)
 
@@ -1613,7 +1707,8 @@ def main() -> int:
     ap.add_argument("--graph", action="store_true",
                     help="build, first-k alone and the graph store at scale (phases 1, 4 and 5)")
     ap.add_argument("--sweep", action="store_true",
-                    help="also time the IVF wrapper's grid rule against fixed splits (phase 6)")
+                    help="also time the IVF wrapper's grid rule against fixed splits (phase 6) "
+                         "and the int8 wrapper's rows per block against 64 (phase 2)")
     args = ap.parse_args()
     try:
         import torch
@@ -1631,7 +1726,9 @@ def main() -> int:
 
     from ragfin_tpu_torch.utils.profiling import card
 
-    print(card(), flush=True)
+    global CARD
+    CARD = card()
+    print(CARD, flush=True)
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
@@ -1644,7 +1741,7 @@ def main() -> int:
     if args.graph:
         graph_scale_phase(torch, graph_index)
         return 0
-    kern = kernel_phase(torch, topk)
+    kern = kernel_phase(torch, topk, sweep=args.sweep)
     ceil = ceiling_phase(torch, topk)
     ivf_alone = ivf_phase(torch, topk, ivf, sweep=args.sweep)
     if args.kernels:

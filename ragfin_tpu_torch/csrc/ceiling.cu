@@ -21,21 +21,20 @@
 //
 // What bounds each stage on an H100: dma reads the corpus once per query
 // tile and does nothing else, so device memory bounds it (768 MB of bf16 at
-// N = 1M: 0.23 ms at 3.35 TB/s); from mm on, the f32/bf16 product runs on
-// the tensor cores under that same bound at Q = 64, and the int8 one on
-// __dp4a; the stages above mm add the level-1 reductions of the two-level
-// selection (row maxima over the accumulators, a barrier per tile).
+// N = 1M: 0.23 ms at 3.35 TB/s); from mm on, the product runs on the tensor
+// cores (f32/bf16 under that same bound at Q = 64; int8 at Q = 1024, 0.40
+// ms of s8 products at 1,979 TOP/s against a 0.12 ms read, is bound by its
+// operations); the stages above mm add the level-1 reductions of the
+// two-level selection (row maxima over the accumulators, a barrier per tile).
 //
-// Design: the probe IS pass 1 (fused_pass1.cuh / fused_pass1_int8.cuh,
-// template parameter STAGE): the same chunk-of-tiles grid and the same
-// staged slices and product, so a change to pass 1 changes the probe with
-// it. Only what follows the scored tile differs: in the f32/bf16 pass 1,
-// mm and mask read one accumulator, rowmax and prologue the sub-block
-// maxima (and their columns) the selection's gate computes; the int8 pass 1
-// keeps CeilRows (topk_common.cuh). The TPU probes
-// carry their sum from grid step to grid step; here each block sums the
-// probe tiles of its own chunk (a chunk holds whole probe tiles) and writes
-// one partial per (chunk, row); ceiling_reduce then adds the partials in
+// Design: the probe IS pass 1 (fused_pass1.cuh, template parameter STAGE):
+// the same chunk-of-tiles grid and the same staged slices and product, so a
+// change to pass 1 changes the probe with it. Only what follows the scored
+// tile differs: mm and mask (and mmint) read one accumulator, rowmax and
+// prologue (and rowmaxint) the sub-block maxima (and their columns) the
+// selection's gate computes. The TPU probes carry their sum from grid step
+// to grid step; here each block sums the probe tiles of its own chunk (a
+// chunk holds whole probe tiles) and writes one partial per (chunk, row); ceiling_reduce then adds the partials in
 // chunk order, so the result does not depend on how blocks were scheduled
 // (no float atomics) and the int stages are exact. On the TPU the BlockSpec
 // copy happens whatever the body reads; here nothing is read unless a thread
@@ -44,7 +43,6 @@
 // host passes a sink buffer: the copies cannot be dropped, and the host can
 // check the XOR of the words against the corpus.
 #include "fused_pass1.cuh"
-#include "fused_pass1_int8.cuh"
 
 using namespace ragfin;
 
@@ -80,77 +78,58 @@ struct Call {
 };
 
 template <typename T, int TQ, int STAGE>
-cudaError_t run_float(const Call& c) {
-  return launch_pass1<T, TQ, false, STAGE>(static_cast<const float*>(c.q), c.Q, c.D, c.ct, c.ld,
-                                           c.tile_stride, c.bn, c.n_phys, c.limit, 0,
-                                           c.tiles_per_chunk, c.n_chunks, c.part_f, c.part_i,
-                                           c.stream, ProbeWalk{}, c.ceil);
-}
-
-template <int TQ, int STAGE>
-cudaError_t run_int8(const Call& c) {
-  return launch_pass1_int8<TQ, false, STAGE>(
-      static_cast<const int8_t*>(c.q), c.Q, c.D, static_cast<const int8_t*>(c.ct), c.cscale,
-      c.ld, c.tile_stride, c.bn, c.n_phys, c.limit, 0, c.tiles_per_chunk, c.n_chunks, c.part_f,
-      c.part_i, c.stream, ProbeWalk{}, nullptr, c.ceil);
+cudaError_t run(const Call& c) {
+  return launch_pass1<T, TQ, false, STAGE>(c.q, c.Q, c.D, c.ct, c.ld, c.tile_stride, c.bn,
+                                           c.n_phys, c.limit, 0, c.tiles_per_chunk, c.n_chunks,
+                                           c.part_f, c.part_i, c.stream, ProbeWalk{}, c.ceil,
+                                           c.cscale);
 }
 
 template <typename T, int TQ>
-cudaError_t dispatch_float(int stage, const Call& c) {
+cudaError_t dispatch(int stage, const Call& c) {
   static_assert(TQ == 8 || TQ == 32 || TQ == 64, "tq");
   switch (stage) {
-    case kCeilDma: return run_float<T, TQ, kCeilDma>(c);
-    case kCeilMm: return run_float<T, TQ, kCeilMm>(c);
-    case kCeilMask: return run_float<T, TQ, kCeilMask>(c);
-    case kCeilRowmax: return run_float<T, TQ, kCeilRowmax>(c);
-    case kCeilPrologue: return run_float<T, TQ, kCeilPrologue>(c);
-    default: return cudaErrorInvalidValue;
+    case kCeilDma: return run<T, TQ, kCeilDma>(c);
+    case kCeilMm: return run<T, TQ, kCeilMm>(c);
+    case kCeilMask: return run<T, TQ, kCeilMask>(c);
+    case kCeilRowmax: return run<T, TQ, kCeilRowmax>(c);
+    case kCeilPrologue: return run<T, TQ, kCeilPrologue>(c);
+    default: break;
   }
+  if constexpr (std::is_same<T, int8_t>::value) {
+    if (stage == kCeilMmInt) return run<T, TQ, kCeilMmInt>(c);
+    if (stage == kCeilRowmaxInt) return run<T, TQ, kCeilRowmaxInt>(c);
+  }
+  return cudaErrorInvalidValue;
 }
 
-template <int TQ>
-cudaError_t dispatch_int8(int stage, const Call& c) {
-  switch (stage) {
-    case kCeilDma: return run_int8<TQ, kCeilDma>(c);
-    case kCeilMm: return run_int8<TQ, kCeilMm>(c);
-    case kCeilMask: return run_int8<TQ, kCeilMask>(c);
-    case kCeilRowmax: return run_int8<TQ, kCeilRowmax>(c);
-    case kCeilPrologue: return run_int8<TQ, kCeilPrologue>(c);
-    case kCeilMmInt: return run_int8<TQ, kCeilMmInt>(c);
-    case kCeilRowmaxInt: return run_int8<TQ, kCeilRowmaxInt>(c);
-    default: return cudaErrorInvalidValue;
-  }
+template <typename T>
+cudaError_t dispatch_tq(int tq, int stage, const Call& c) {
+  return tq == 8 ? dispatch<T, 8>(stage, c) : tq == 32 ? dispatch<T, 32>(stage, c)
+                                                       : dispatch<T, 64>(stage, c);
 }
 
 }  // namespace
 
 // corpus_dtype: 0 = f32, 1 = bf16 (q is f32 [Q, D]), 2 = int8 (q is int8
 // [Q, D], cscale the column scales). stage: a Stage of topk_common.cuh other
-// than kStageSelect. tq: 8, 32 or 64 (f32/bf16 only) query rows per block. int_partials: whether
+// than kStageSelect. tq: 8, 32 or 64 query rows per block. int_partials: whether
 // this (stage, dtype) sums in int32 (part_i) or in f32 (part_f). sink: null,
-// or [q_tiles * n_chunks * 256] words for the dma stage. Returns the first
+// or [n_chunks * q_tiles * 512] words for the dma stage. Returns the first
 // CUDA error (0 on success); nothing synchronises.
 extern "C" int ragfin_ceiling(const void* q, int Q, int D, const void* ct, const float* cscale,
                               int corpus_dtype, int stage, long long ld, long long tile_stride,
                               int bn, int n_phys, int limit, int tq, int tiles_per_chunk,
                               int n_chunks, int block_tiles, int int_partials, float* part_f,
                               int* part_i, unsigned* sink, float* out, void* stream_ptr) {
-  if ((tq != 8 && tq != 32 && (tq != 64 || corpus_dtype == 2)) || corpus_dtype < 0 ||
+  if ((tq != 8 && tq != 32 && tq != 64) || corpus_dtype < 0 ||
       corpus_dtype > 2 || block_tiles < 1 || tiles_per_chunk % block_tiles != 0)
     return (int)cudaErrorInvalidValue;
   Call c{q,      Q,     D,      ct,    cscale, ld, tile_stride, bn, n_phys, limit, tiles_per_chunk,
          n_chunks, part_f, part_i, static_cast<cudaStream_t>(stream_ptr), CeilArgs{block_tiles, sink}};
-  cudaError_t err;
-  if (corpus_dtype == 0)
-    err = tq == 8    ? dispatch_float<float, 8>(stage, c)
-          : tq == 32 ? dispatch_float<float, 32>(stage, c)
-                     : dispatch_float<float, 64>(stage, c);
-  else if (corpus_dtype == 1)
-    err = tq == 8    ? dispatch_float<__nv_bfloat16, 8>(stage, c)
-          : tq == 32 ? dispatch_float<__nv_bfloat16, 32>(stage, c)
-                     : dispatch_float<__nv_bfloat16, 64>(stage, c);
-  else
-    err = tq == 8 ? dispatch_int8<8>(stage, c) : dispatch_int8<32>(stage, c);
+  const cudaError_t err = corpus_dtype == 0   ? dispatch_tq<float>(tq, stage, c)
+                          : corpus_dtype == 1 ? dispatch_tq<__nv_bfloat16>(tq, stage, c)
+                                              : dispatch_tq<int8_t>(tq, stage, c);
   if (err != cudaSuccess) return (int)err;
   ceiling_reduce<<<(Q + 255) / 256, 256, 0, c.stream>>>(part_f, int_partials ? part_i : nullptr,
                                                         n_chunks, Q, out);

@@ -36,16 +36,15 @@
 // is a strict total order on (score, permuted id), so the result is the
 // ascending walk's whatever order the blocks ran in. `splits` cuts a cell
 // over several blocks so that a single query tile still fills the card.
-// The int8 route keeps its own pass 1 (fused_pass1_int8.cuh, __dp4a).
+// int8 cells run the same pass 1 (T = int8_t: mma.sync s8 products).
 #include "fused_pass1.cuh"
-#include "fused_pass1_int8.cuh"
 
 using namespace ragfin;
 
 // dtype: 0 = f32 cells, 1 = bf16 cells (q is f32 [Qp, D]; qscale and cscale
 // unused), 2 = int8 cells (q is int8 [Qp, D], qscale f32 [Qp], cscale f32
 // [n_cells * cell]). Qp is a multiple of block_q, block_q of tq (8 or 32;
-// the probed walk's 64-row blocks would spill registers), cell of
+// the probed walk's 64-row blocks spilled registers over f32 cells), cell of
 // 128 * splits. probe: [Qp / block_q, nprobe] int32. part_*:
 // [nprobe * splits, Qp, k]. Returns the first CUDA error (0 on success);
 // nothing synchronises.
@@ -70,36 +69,23 @@ extern "C" int ragfin_ivf_topk(const void* q, const float* qscale, int Qp, int D
   const int n_chunks = nprobe * splits;
   const int n_phys = n_cells * cell;
   const long long ld = cell, tile_stride = (long long)D * cell;
-  const float* qf = static_cast<const float*>(q);
-  const int8_t* q8 = static_cast<const int8_t*>(q);
   auto run = [&](auto tag, auto tq_c) {
     using T = decltype(tag);
     constexpr int TQ = decltype(tq_c)::value;
     return k <= 64 ? launch_pass1<T, TQ, true, kStageSelect, 2>(
-                         qf, Qp, D, cells, ld, tile_stride, cell, n_phys, n_valid, k, per_chunk,
-                         n_chunks, part_s, part_i, stream, walk)
+                         q, Qp, D, cells, ld, tile_stride, cell, n_phys, n_valid, k, per_chunk,
+                         n_chunks, part_s, part_i, stream, walk, CeilArgs{}, cscale, qscale)
                    : launch_pass1<T, TQ, true, kStageSelect, 4>(
-                         qf, Qp, D, cells, ld, tile_stride, cell, n_phys, n_valid, k, per_chunk,
-                         n_chunks, part_s, part_i, stream, walk);
+                         q, Qp, D, cells, ld, tile_stride, cell, n_phys, n_valid, k, per_chunk,
+                         n_chunks, part_s, part_i, stream, walk, CeilArgs{}, cscale, qscale);
   };
   auto by_tq = [&](auto tag) {
     return tq == 8 ? run(tag, std::integral_constant<int, 8>{})
                    : run(tag, std::integral_constant<int, 32>{});
   };
-  cudaError_t err;
-  if (dtype == 0) {
-    err = by_tq(float{});
-  } else if (dtype == 1) {
-    err = by_tq(__nv_bfloat16{});
-  } else {
-    const int8_t* c8 = static_cast<const int8_t*>(cells);
-    err = tq == 8 ? launch_pass1_int8<8, true>(q8, Qp, D, c8, cscale, ld, tile_stride, cell,
-                                               n_phys, n_valid, k, per_chunk, n_chunks, part_s,
-                                               part_i, stream, walk, qscale)
-                  : launch_pass1_int8<32, true>(q8, Qp, D, c8, cscale, ld, tile_stride, cell,
-                                                n_phys, n_valid, k, per_chunk, n_chunks, part_s,
-                                                part_i, stream, walk, qscale);
-  }
+  const cudaError_t err = dtype == 0   ? by_tq(float{})
+                          : dtype == 1 ? by_tq(__nv_bfloat16{})
+                                       : by_tq(int8_t{});
   if (err != cudaSuccess) return (int)err;
   return (int)launch_merge(part_s, part_i, n_chunks, Qp, k, nullptr, out_s, out_i, stream);
 }

@@ -36,7 +36,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .topk import _KERNEL_TILE_N, _launch_plan, _layout_args, _pass1_plan, _pass1_tile, _untile
+from .topk import _KERNEL_TILE_N, _layout_args, _pass1_plan, _tile, _untile
 
 STAGES = {"dma": 1, "mm": 2, "mask": 3, "rowmax": 4, "prologue": 5, "mmint": 6, "rowmaxint": 7}
 INT_STAGES = ("mmint", "rowmaxint")
@@ -160,27 +160,15 @@ def fused_chunk_columns(nq: int, n: int, device, corpus_dtype=torch.bfloat16,
     """Columns one pass-1 block of the fused kernels walks at ``(nq, n)`` on
     ``device`` for this corpus dtype and D: probing at this ``block_n`` runs
     exactly their grid."""
-    if corpus_dtype == torch.int8:
-        return _launch_plan(nq, n, 8 if nq <= 8 else 32, device)[0] * _KERNEL_TILE_N
-    tq = _pass1_tile(nq, d, torch.tensor([], dtype=corpus_dtype).element_size())
+    tq = _tile(nq, d, torch.tensor([], dtype=corpus_dtype).element_size())
     return _pass1_plan(nq, n, tq, device)[0] * _KERNEL_TILE_N
 
 
-def _tile_q(nq: int, d: int, corpus_dtype) -> int:
-    """Query rows per block of the probe's pass 1."""
-    if corpus_dtype == torch.int8:
-        return 8 if nq <= 8 else 32
-    return _pass1_tile(nq, d, torch.tensor([], dtype=corpus_dtype).element_size(), select=False)
-
-
-def _plan(nq: int, n: int, tq: int, int8: bool, block_n: int, device) -> tuple[int, int, int]:
+def _plan(nq: int, n: int, tq: int, block_n: int, device) -> tuple[int, int, int]:
     """(tiles per chunk, chunks, kernel tiles per probe tile): the fused
     kernels' grid rule with the chunk cut down to whole probe tiles (one
     probe tile where it is wider than the rule's chunk)."""
-    if int8:
-        per_chunk, _ = _launch_plan(nq, n, tq, device)
-    else:
-        per_chunk, _ = _pass1_plan(nq, n, tq, device)
+    per_chunk, _ = _pass1_plan(nq, n, tq, device)
     block_tiles = block_n // _KERNEL_TILE_N
     per_chunk = max(block_tiles, per_chunk // block_tiles * block_tiles)
     n_tiles = -(-n // _KERNEL_TILE_N)
@@ -233,17 +221,16 @@ def ceiling(
     out = torch.empty(nq, dtype=torch.float32, device=q.device)
     if nq == 0 or n == 0:
         return (out.zero_(), 0) if read_check else out.zero_()
-    tq = _tile_q(nq, d, corpus_t.dtype)
-    per_chunk, chunks, block_tiles = _plan(nq, n, tq, is_int8, _block_n(corpus_t, block_n), q.device)
+    tq = _tile(nq, d, corpus_t.element_size(), select=False)
+    per_chunk, chunks, block_tiles = _plan(nq, n, tq, _block_n(corpus_t, block_n), q.device)
     int_partials = is_exact(corpus_t.dtype, stage)
     part = torch.empty(
         (chunks, nq), dtype=torch.int32 if int_partials else torch.float32, device=q.device
     )
     q_tiles = -(-nq // tq)
-    # One word per thread: 256 a block in the int8 pass 1, up to 512 in the
-    # f32/bf16 one (zeros where a block has fewer threads).
+    # One word per thread of a 512-thread block (the walker warps' stay zero).
     sink = (
-        torch.zeros((chunks, q_tiles, 256 if is_int8 else 512), dtype=torch.int32, device=q.device)
+        torch.zeros((chunks, q_tiles, 512), dtype=torch.int32, device=q.device)
         if read_check else None
     )
     ld, tile_stride, bn = _layout_args(corpus_t, n)

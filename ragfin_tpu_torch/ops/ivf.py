@@ -376,15 +376,17 @@ def pruned_topk_plain(
 
 def _splits(q_blocks: int, nprobe: int, tiles_per_cell: int, device: torch.device) -> int:
     """How many blocks share one probed cell: the largest divisor of its
-    tile count that keeps the grid near four blocks per SM (and its second
-    dimension within CUDA's limit), so a single query tile still fills the
-    card and a large batch does not multiply its partial lists."""
+    tile count that keeps the grid within about two waves of pass 1's
+    512-thread blocks, one per SM (and its second dimension within CUDA's
+    limit), so a single query tile still fills the card and a large batch
+    does not multiply its partial lists. (chip_smoke.py --sweep times the
+    rule against fixed splits.)"""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     best = 1
     for s in range(1, tiles_per_cell + 1):
         if tiles_per_cell % s:
             continue
-        if nprobe * s > _MAX_GRID_Y or q_blocks * nprobe * s > 4 * sms:
+        if nprobe * s > _MAX_GRID_Y or q_blocks * nprobe * s > 2 * sms:
             break
         best = s
     return best
@@ -450,11 +452,9 @@ def pruned_topk(
         qscale = qscale.float().contiguous()
         if qscale.numel() != qp:
             raise ValueError("qscale must hold one scale per query row")
-    if int8:
-        tq = 32 if block_q % 32 == 0 else 8
-    else:
-        fits = [t for t in (8, 32) if block_q % t == 0]
-        tq = _pass1_tile(block_q, d, cells.element_size(), allowed=fits)
+    # 8 or 32 rows a block: the probed walk's 64-row block spilled registers.
+    fits = [t for t in (8, 32) if block_q % t == 0]
+    tq = _pass1_tile(block_q, d, cells.element_size(), allowed=fits)
     splits = _splits(qp // tq, nprobe, cell // _KERNEL_TILE_N, cells.device)
     part_s = torch.empty((nprobe * splits, qp, k), dtype=torch.float32, device=cells.device)
     part_i = torch.empty((nprobe * splits, qp, k), dtype=torch.int32, device=cells.device)

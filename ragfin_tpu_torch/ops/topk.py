@@ -268,32 +268,31 @@ def fused_topk_int8_plain(queries, corpus_i8, scales, k, n_valid=None):
     return torch.where(s == NEG_INF, s, s * qscale), i
 
 
-def _launch_plan(q: int, n: int, tq: int, device: torch.device) -> tuple[int, int]:
-    """(tiles per chunk, chunk count) of the int8 pass 1: about four blocks
-    per SM over all query tiles, and at least two column tiles per chunk so
-    each block's list fill is shared by some scoring work."""
-    n_tiles = -(-n // _KERNEL_TILE_N)
-    q_tiles = -(-q // tq)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    per_chunk = max(2, -(-n_tiles * q_tiles // (4 * sms)))
-    return per_chunk, -(-n_tiles // per_chunk)
-
-
-# Shared memory of one f32/bf16 pass-1 block (csrc/fused_pass1.cuh
-# pass1_smem, which this mirrors): queries [TQ, Dp + pad] f32, a ring of
-# 16 KB corpus slices (rows padded to 136 columns; three slices at TQ = 64,
-# else four), two buffers of sub-block maxima and their columns, ceiling
-# sums, and for the selection two [TQ, 132] score tiles and each row's k-th
-# score (the lists themselves live in the walker warps' registers).
+# Shared memory of one pass-1 block (csrc/fused_pass1.cuh pass1_smem, which
+# this mirrors): queries [TQ, Dp + pad] (f32, or int8 over an int8 corpus), a
+# ring of 16 KB corpus slices (rows padded to 136 columns, int8 to 144; three
+# slices at TQ = 64, else four), for int8 two k-packed [128, 36]-word
+# buffers, two buffers of sub-block maxima and their columns, ceiling sums,
+# and for the selection two [TQ, 132] score tiles and each row's k-th score
+# (the lists themselves live in the walker warps' registers).
 _SMEM_LIMIT = 232448  # dynamic shared memory one block may use on an H100
+# Per corpus itemsize: slice depth, query row padding, corpus row stride.
+_SLICE = {
+    4: (32, 4, _KERNEL_TILE_N + 8),
+    2: (64, 8, _KERNEL_TILE_N + 8),
+    1: (128, 16, _KERNEL_TILE_N + 16),
+}
 
 
 def _pass1_smem(tq: int, d: int, itemsize: int, select: bool = True) -> int:
-    dk, pad = (32, 4) if itemsize == 4 else (64, 8)
+    dk, pad, cs = _SLICE[itemsize]
     dp = -(-d // dk) * dk
     wc = 8 if tq == 8 else 4
     stages = 3 if tq == 64 else 4
-    size = 4 * tq * (dp + pad) + itemsize * stages * dk * (_KERNEL_TILE_N + 8) + 2 * tq * wc * 8
+    q_item = 1 if itemsize == 1 else 4
+    size = q_item * tq * (dp + pad) + itemsize * stages * dk * cs + 2 * tq * wc * 8
+    if itemsize == 1:
+        size += 2 * _KERNEL_TILE_N * (dk // 4 + 4) * 4
     size += tq * 12
     if select:
         size += 4 * tq * (2 * (_KERNEL_TILE_N + 4) + 1)
@@ -301,9 +300,9 @@ def _pass1_smem(tq: int, d: int, itemsize: int, select: bool = True) -> int:
 
 
 def _pass1_tile(nq: int, d: int, itemsize: int, select: bool = True, allowed=(8, 32, 64)) -> int:
-    """Query rows per block of the f32/bf16 pass 1: the widest tile that
-    ``nq`` fills (64 reads the corpus once at Q = 64) and whose shared memory
-    fits."""
+    """Query rows per block of pass 1 over a corpus of ``itemsize`` 4, 2 or 1
+    bytes: the widest tile that ``nq`` fills (64 reads the corpus once at
+    Q = 64) and whose shared memory fits."""
     want = 64 if nq > 32 else 32 if nq > 8 else 8
     for tq in sorted(allowed, reverse=True):
         if tq <= want and _pass1_smem(tq, d, itemsize, select) <= _SMEM_LIMIT:
@@ -311,9 +310,26 @@ def _pass1_tile(nq: int, d: int, itemsize: int, select: bool = True, allowed=(8,
     raise ValueError(f"D={d}: a pass-1 block's shared memory exceeds {_SMEM_LIMIT} bytes")
 
 
+# Query rows per block of the int8 pass 1. Its 64-row block builds without
+# spills, but up to Q = 128 the int8 pass 1 is bound by its walk (the
+# product and the read are cheap), and 32-row blocks halve each walker
+# warp's rows for twice the chunk length; from Q = _INT8_WIDE_FROM on, the
+# corpus reads of twice the query tiles cost more than that saves, and the
+# blocks take 64 rows (chip_smoke.py --sweep times both at Q = 64, 128 and
+# 1024).
+_INT8_WIDE_FROM = 256
+
+
+def _tile(nq: int, d: int, itemsize: int, select: bool = True) -> int:
+    """Query rows per block of pass 1 for a corpus of this itemsize: the
+    fused wrappers' rule, which the ceiling probe follows."""
+    narrow = itemsize == 1 and nq < _INT8_WIDE_FROM
+    return _pass1_tile(nq, d, itemsize, select, (8, 32) if narrow else (8, 32, 64))
+
+
 def _pass1_plan(q: int, n: int, tq: int, device: torch.device) -> tuple[int, int]:
-    """(tiles per chunk, chunk count) of the f32/bf16 pass 1: one wave of
-    blocks over all query tiles (a block of 512 threads holds its SM alone,
+    """(tiles per chunk, chunk count) of pass 1: one wave of blocks over all
+    query tiles (a block of 512 threads holds its SM alone,
     csrc/fused_pass1.cuh __launch_bounds__), so pass 2 merges few lists, and
     at least two column tiles per chunk."""
     n_tiles = -(-n // _KERNEL_TILE_N)
@@ -378,7 +394,7 @@ def cosine_topk_fused(
     if nq == 0 or n == 0:
         return _empty_result(nq, k, q.device)
     fn = _cuda.kernel("fused_topk")
-    tq = _pass1_tile(nq, d, corpus_t.element_size())
+    tq = _tile(nq, d, corpus_t.element_size())
     per_chunk, chunks = _pass1_plan(nq, n, tq, q.device)
     part_s = torch.empty((chunks, nq, k), dtype=torch.float32, device=q.device)
     part_i = torch.empty((chunks, nq, k), dtype=torch.int32, device=q.device)
@@ -428,8 +444,8 @@ def cosine_topk_fused_int8(
     if nq == 0 or n == 0:
         return _empty_result(nq, k, q8.device)
     fn = _cuda.kernel("fused_topk_int8")
-    tq = 8 if nq <= 8 else 32
-    per_chunk, chunks = _launch_plan(nq, n, tq, q8.device)
+    tq = _tile(nq, d, 1)
+    per_chunk, chunks = _pass1_plan(nq, n, tq, q8.device)
     part_s = torch.empty((chunks, nq, k), dtype=torch.float32, device=q8.device)
     part_i = torch.empty((chunks, nq, k), dtype=torch.int32, device=q8.device)
     out_s = torch.empty((nq, k), dtype=torch.float32, device=q8.device)
