@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # the full check, as a release gate
     python3 chip_smoke.py --kernels  # phases 1, 2, 4, 6 and 7 only (build, kernels alone)
     python3 chip_smoke.py --graph    # phases 1, 4 and 5 only (build, first-k, graph store)
-    python3 chip_smoke.py --sweep    # also the IVF and int8 grid-rule sweeps (phases 6, 2)
+    python3 chip_smoke.py --sweep    # also the IVF and int8 grid-rule and first-k span sweeps
 
 Phases (any failure exits nonzero, and no phase carries on past one):
 
@@ -53,9 +53,25 @@ Phases (any failure exits nonzero, and no phase carries on past one):
    pruned kernel; at nprobe = n_cells its hits equal the flat engine's, and
    at nprobe 32 the kernel is held against its plain version on the engine's
    own cells and probe table.
-4. First-k alone: hit [10,000,000] int8 at hit rates 1e-3, 1.0 and 0 and
-   with three hits in the last rows, k = 30, ids and count equal to the
-   plain version; timed beside torch.nonzero(hit)[:k].
+   Integrity (3b): Settings(integrity_weight=0.5) over the generated
+   statements' 16 ICICI FY2024 chunks and 8,192 in-scope tampered copies
+   (eval/distractors.generate_inscope_distractors); warmup must compute the
+   integrity column. Weighted searches on the card (f32 and int8 indexes,
+   strict and smooth, weights 0.5 and 0.95, unscoped, period-scoped, tier
+   groups, VectorRAG) must equal the same searches by the port on the CPU
+   over the same embeddings (ids outside 1e-5 tie bands, scores within
+   1e-5), and every tampered copy that fails a check must rank below its
+   source where the source passes all of its checks.
+4. First-k alone: hit [10,000,000] int8 at hit rates 1e-3, 1.0 and 0, with
+   three hits in the last rows, hits in the last span only, one hit at 0,
+   k = 1, k = the hit count, a bool ragged and an unaligned vector, k = 30
+   and 5,000; then 31 calls on other vectors and k with no sync between
+   them, and the same on two streams at once: ids and count equal to the
+   plain version. The device time of one call per rate from torch.profiler,
+   which must show the first-k kernel alone, once for each launch the
+   wrapper counted; the wrapper call (median of 200 CUDA-event timings)
+   beside torch.nonzero(hit)[:k] and the bytes bound. With --sweep the
+   kernel is also built at spans of 4-64 KB, checked and timed.
 5. Graph store at scale: 10,000,000 facts through add_facts_bulk; match,
    aggregate and expand(hops=2) against a numpy oracle over the packed host
    columns; match must launch the first-k kernel.
@@ -596,9 +612,10 @@ def ceiling_phase(torch, topk) -> dict:
     return {"rows": results, "max_abs_err": max_err, "n": n}
 
 
-def profiled(torch, fn, reps: int) -> tuple[list[tuple[float, str]], float]:
-    """Run fn() ``reps`` times under torch.profiler: (device ms per call of
-    each CUDA kernel and copy, largest first; host wall ms per call)."""
+def kernel_profile(torch, fn, reps: int) -> tuple[dict[str, tuple[int, float]], float, dict[str, int]]:
+    """Run fn() once, then ``reps`` times under torch.profiler: ({CUDA kernel
+    or copy: (events, device ms in all)}, host wall ms per call, {CUDA
+    runtime call: count})."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -609,15 +626,23 @@ def profiled(torch, fn, reps: int) -> tuple[list[tuple[float, str]], float]:
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / reps
-    parts = []
+    kernels, runtime = {}, {}
     for ev in prof.key_averages():
         dev_us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+        if ev.key and ev.key.startswith("cuda"):
+            runtime[ev.key] = ev.count
         # Host-side entries (aten ops, CUDA runtime calls) also carry their
         # kernels' device time; only the kernels and copies are counted.
         if dev_us and ev.key and not ev.key.startswith(("cuda", "aten::")):
-            parts.append((dev_us / reps / 1e3, ev.key.split("(")[0][:60]))
-    parts.sort(reverse=True)
-    return parts, wall_ms
+            kernels[ev.key.split("(")[0][:60]] = (ev.count, dev_us / 1e3)
+    return kernels, wall_ms, runtime
+
+
+def profiled(torch, fn, reps: int) -> tuple[list[tuple[float, str]], float]:
+    """Run fn() ``reps`` times under torch.profiler: (device ms per call of
+    each CUDA kernel and copy, largest first; host wall ms per call)."""
+    kernels, wall_ms, _ = kernel_profile(torch, fn, reps)
+    return sorted(((ms / reps, name) for name, (_, ms) in kernels.items()), reverse=True), wall_ms
 
 
 def profile_breakdown(torch, label: str, q_n: int, fn, reps: int = 10) -> None:
@@ -730,50 +755,199 @@ def pass1_ptxas(_cuda) -> None:
 # --- phase 4: first-k alone ------------------------------------------------
 
 
-def first_k_phase(torch, graph_index) -> dict:
-    import numpy as np
+FIRST_K_RUNS = 200  # the wrapper call is host-bound and spreads: a median of many
+# --sweep: other spans, in 4 KB rounds a block (the committed build reads 8).
+FIRST_K_SWEEP_ITERS = (1, 2, 4, 8, 16)
+FIRST_K_PROFILES = 3  # tries at a profile that holds kernel records
 
+
+def first_k_device_ms(torch, fn, reps: int = 50, counter=None) -> float:
+    """Device ms of one first-k call from torch.profiler. Fails unless the
+    ``reps`` calls made exactly ``reps`` kernel launches (cudaLaunchKernel
+    calls in the profile and, where ``counter`` (the wrapper) is given, as
+    many launches counted by it, with kernel_profile's call before), no copy
+    or memset, and the device ran no kernel but first-k. The time is the mean
+    of the kernel records the trace delivers: on the card it has lost some
+    or all of them (49 of 50; 0 of 50) while keeping every launch call, so
+    up to FIRST_K_PROFILES profiles are taken until one holds records."""
+    for _ in range(FIRST_K_PROFILES):
+        before = counter.launches if counter is not None else 0
+        kernels, _, runtime = kernel_profile(torch, fn, reps)
+        counted = counter.launches - before - 1 if counter is not None else reps
+        launch_calls = {key: n for key, n in runtime.items()
+                        if key.startswith(("cudaLaunch", "cudaMemset", "cudaMemcpy"))}
+        names = list(kernels)
+        if launch_calls != {"cudaLaunchKernel": reps} or counted != reps or len(names) > 1 \
+                or (names and ("first_k_kernel" not in names[0] or kernels[names[0]][0] > reps)):
+            raise AssertionError(f"{reps} first-k calls made {launch_calls} (the wrapper counted {counted}) "
+                                 f"and ran {kernels}: not one first-k kernel each")
+        if names:
+            events, ms = kernels[names[0]]
+            if events < reps:
+                print(f"first_k profile: the trace kept {events} of {reps} kernel records", flush=True)
+            return ms / events
+    raise AssertionError(f"{FIRST_K_PROFILES} profiles of {reps} first-k calls held no kernel record")
+
+
+def first_k_phase(torch, graph_index, sweep: bool = False) -> dict:
     dev = torch.device("cuda")
     n, k = N_GRAPH, FIRST_K
+    span = graph_index.FIRST_K_SPAN
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     sparse = (torch.rand((n,), generator=gen, device=dev) < 1e-3).to(torch.int8)
     last = torch.zeros((n,), dtype=torch.int8, device=dev)
     last[-3:] = 1
+    last_span = torch.zeros((n,), dtype=torch.int8, device=dev)  # hits in the last span only
+    last_span[(n - 1) // span * span:: 97] = 1
+    single = torch.zeros((n,), dtype=torch.int8, device=dev)
+    single[0] = 1
     cases = {
-        "rate 1e-3": sparse,
-        "rate 1.0": torch.ones((n,), dtype=torch.int8, device=dev),
-        "no hits": torch.zeros((n,), dtype=torch.int8, device=dev),
-        "three hits in the last rows": last,
-        "bool, ragged length": sparse[: n - 12_345].bool(),
-        "unaligned view": sparse[3:],
+        "rate 1e-3": (sparse, k),
+        "rate 1.0": (torch.ones((n,), dtype=torch.int8, device=dev), k),
+        "no hits": (torch.zeros((n,), dtype=torch.int8, device=dev), k),
+        "three hits in the last rows": (last, k),
+        "hits in the last span only": (last_span, k),
+        "a single hit at 0": (single, k),
+        "k = 1": (sparse, 1),
+        "k = hits": (last_span, int(last_span.count_nonzero())),
+        "bool, ragged length": (sparse[: n - 12_345].bool(), k),
+        "unaligned view": (sparse[3:], k),
+        "rate 1e-3, k=5000": (sparse, 5000),  # k above a span's hits and the head's
     }
     kernel, plain = graph_index.masked_first_k, graph_index.masked_first_k_plain
-    big_k = 5000  # k above the hit count of a block and of the sparse vector's head
     max_err = 0  # largest |id difference| or |count difference| seen, kernel against plain
-    for label, hit, kk in [(label, hit, k) for label, hit in cases.items()] + [
-            (f"rate 1e-3, k={big_k}", sparse, big_k)]:
-        ids, cnt = kernel(hit, kk)
-        torch.cuda.synchronize()
+
+    def check(label, hit, kk, got):
+        nonlocal max_err
+        ids, cnt = got
         pids, pcnt = plain(hit, kk)
         max_err = max(max_err, int((ids.long() - pids.long()).abs().max()),
                       abs(int(cnt) - int(pcnt)))
         if not (torch.equal(ids, pids) and int(cnt) == int(pcnt)):
             raise AssertionError(f"first-k {label}: kernel {ids.tolist()[:40]} count {int(cnt)} != "
                                  f"plain {pids.tolist()[:40]} count {int(pcnt)}")
-    print(f"first-k check N={n} k={k}: {len(cases)} hit patterns and k={big_k} equal to the "
-          f"plain version (ids and count, max difference {max_err})", flush=True)
-    ms = time_ms(torch, lambda: kernel(sparse, k))
-    plain_ms = time_ms(torch, lambda: plain(sparse, k))
-    lib_ms = time_ms(torch, lambda: torch.nonzero(sparse)[:k])
-    dense_ms = time_ms(torch, lambda: kernel(cases["rate 1.0"], k))
-    b_ms = (n + 4 * k + 4) / PEAK_BYTES * 1e3
-    print(f"kernel first_k N={n} k={k} rate 1e-3: {ms:.4f} ms (rate 1.0: {dense_ms:.4f} ms), "
-          f"plain {plain_ms:.4f} ms, library torch.nonzero {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
-          f"(bytes), {b_ms / ms:.1%} of bound", flush=True)
-    profile_breakdown(torch, "first_k", 1, lambda: kernel(sparse, k))
+
+    for label, (hit, kk) in cases.items():
+        got = kernel(hit, kk)
+        torch.cuda.synchronize()
+        check(label, hit, kk, got)
+    # Twenty calls on other vectors and k, no sync between them, then two
+    # streams at once: no call may see another's scratch state.
+    rng = torch.Generator(device="cpu").manual_seed(SEED + 3)
+    batch = []
+    for i in range(20):
+        rate = 10.0 ** (-6.5 + 6.5 * torch.rand((), generator=rng).item())
+        kk = int(torch.randint(1, 3000, (), generator=rng))
+        m = n - int(torch.randint(0, 100_000, (), generator=rng))
+        batch.append(((torch.rand((m,), generator=gen, device=dev) < rate).to(torch.int8), kk))
+    batch += list(cases.values())
+    torch.cuda.synchronize()
+    got = [kernel(hit, kk) for hit, kk in batch]
+    torch.cuda.synchronize()
+    for i, ((hit, kk), out) in enumerate(zip(batch, got)):
+        check(f"back-to-back call {i}", hit, kk, out)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    got = []
+    for i, (hit, kk) in enumerate(batch):
+        with torch.cuda.stream(streams[i % 2]):
+            got.append(kernel(hit, kk))
+    torch.cuda.synchronize()
+    for i, ((hit, kk), out) in enumerate(zip(batch, got)):
+        check(f"two streams, call {i}", hit, kk, out)
+    keys = {key for key in graph_index._first_k_scratch if key[1] in {st.cuda_stream for st in streams}}
+    if len(keys) != 2:
+        raise AssertionError(f"two streams shared first-k scratch: {keys}")
+    print(f"first-k check N={n} k={k}: {len(cases)} cases, "
+          f"{len(batch)} back-to-back calls without a sync and the same on two streams at once, "
+          f"all equal to the plain version (ids and count, max difference {max_err})", flush=True)
+
+    # Device time (torch.profiler: one kernel per call, checked).
+    timed = {"rate 1e-3": sparse, "rate 1.0": cases["rate 1.0"][0], "no hits": cases["no hits"][0]}
+    dev_ms = {label: first_k_device_ms(torch, lambda h=h: kernel(h, k), counter=kernel)
+              for label, h in timed.items()}
+    print(f"first_k device ms, span {span} bytes ({-(-n // span)} blocks): "
+          + ", ".join(f"{label} {ms:.4f}" for label, ms in dev_ms.items()), flush=True)
+    # One block alone (N = one span, no hit): the fixed cost of a block's
+    # chain (ticket, read, publish, look-back, finish), whatever N.
+    one_block = first_k_device_ms(torch, lambda: kernel(cases["no hits"][0][:span], k), counter=kernel)
+    print(f"first_k device ms of one block (N = {span}, no hit): {one_block:.4f}", flush=True)
+    by_span = first_k_span_sweep(torch, graph_index, cases, timed, check) if sweep else None
+
+    # The wrapper call (host included) at the default span, beside the plain
+    # version and torch.nonzero, in turns.
+    ms = {label: time_ms(torch, lambda h=h: kernel(h, k), runs=FIRST_K_RUNS, warmup=10)
+          for label, h in timed.items()}
+    lib_ms = time_ms(torch, lambda: torch.nonzero(sparse)[:k], runs=FIRST_K_RUNS, warmup=10)
+    plain_ms = time_ms(torch, lambda: plain(sparse, k), runs=FIRST_K_RUNS, warmup=10)
+    again = time_ms(torch, lambda: kernel(sparse, k), runs=FIRST_K_RUNS, warmup=10)
+    lib_again = time_ms(torch, lambda: torch.nonzero(sparse)[:k], runs=FIRST_K_RUNS, warmup=10)
+    # Bytes the work needs: the sparse call must read up to its k-th hit;
+    # with no hit it reads all N. Each writes k + 1 ints.
+    kth = int(torch.nonzero(sparse)[k - 1])
+    b_ms = (kth + 1 + 4 * (k + 1)) / PEAK_BYTES * 1e3
+    b_none = (n + 4 * (k + 1)) / PEAK_BYTES * 1e3
+
+    def host_us(fn, calls=1000):
+        """Host time per call of ``calls`` calls enqueued back to back."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        spent = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+        return spent
+
+    host = {"wrapper": host_us(lambda: kernel(sparse, k)),
+            "torch.empty(k + 1)": host_us(lambda: torch.empty((k + 1,), dtype=torch.int32, device=dev)),
+            "torch.nonzero(hit)[:k]": host_us(lambda: torch.nonzero(sparse)[:k])}
+    print("first_k host time per call (1000 calls enqueued back to back): "
+          + ", ".join(f"{label} {us:.1f} us" for label, us in host.items()), flush=True)
+    print(f"kernel first_k N={n} k={k} span {span}: wrapper call (median of {FIRST_K_RUNS}) rate 1e-3 "
+          f"{ms['rate 1e-3']:.4f} ms (again {again:.4f}), rate 1.0 {ms['rate 1.0']:.4f}, no hits "
+          f"{ms['no hits']:.4f}; device rate 1e-3 {dev_ms['rate 1e-3']:.4f} ms, rate 1.0 "
+          f"{dev_ms['rate 1.0']:.4f}, no hits {dev_ms['no hits']:.4f}; plain {plain_ms:.4f} ms, "
+          f"library torch.nonzero {lib_ms:.4f} ms (again {lib_again:.4f}); bound (bytes) rate 1e-3 "
+          f"{b_ms:.6f} ms (k-th hit at byte {kth}), no hits {b_none:.4f} ms; one kernel per call",
+          flush=True)
     kernel.launches = 0
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by="bytes",
-                max_abs_err=float(max_err), shape={"N": n, "k": k, "hit_rate": 1e-3})
+    return dict(ms=ms["rate 1e-3"], plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                bound_by="bytes", max_abs_err=float(max_err),
+                shape={"N": n, "k": k, "hit_rate": 1e-3, "span": span},
+                dense_ms=ms["rate 1.0"], no_hit_ms=ms["no hits"], no_hit_bound_ms=b_none,
+                device_ms=dev_ms, device_ms_by_span=by_span, host_us=host,
+                one_block_device_ms=one_block)
+
+
+def first_k_span_sweep(torch, graph_index, cases, timed, check) -> dict:
+    """csrc/first_k.cu built with other spans (RAGFIN_FK_ITERS rounds of 4 KB
+    a block), called on their own scratch: every case equal to the plain
+    version, then the device ms of each timed case."""
+    from ragfin_tpu_torch.ops import _cuda
+
+    dev, k = torch.device("cuda"), FIRST_K
+    stream = torch.cuda.current_stream().cuda_stream
+    by_span = {}
+    for iters in FIRST_K_SWEEP_ITERS:
+        fn = _cuda.kernel("first_k", (f"RAGFIN_FK_ITERS={iters}",))
+        n_status = -(-N_GRAPH // (4096 * iters))
+        scratch = torch.zeros((graph_index._FIRST_K_HEADER + n_status,), dtype=torch.int64, device=dev)
+
+        def call(hit, kk):
+            out = torch.empty((kk + 1,), dtype=torch.int32, device=dev)
+            _cuda.check(fn(hit.data_ptr(), hit.shape[0], kk, scratch.data_ptr(), n_status,
+                           out.data_ptr(), stream), "first_k")
+            return out[:kk], out[kk]
+
+        for label, (hit, kk) in cases.items():
+            got = call(hit, kk)
+            torch.cuda.synchronize()
+            check(f"{label}, span {4096 * iters}", hit, kk, got)
+        by_span[str(4096 * iters)] = row = {
+            label: first_k_device_ms(torch, lambda h=h: call(h, k)) for label, h in timed.items()}
+        print(f"first_k device ms by span {4096 * iters} bytes ({n_status} blocks): "
+              + ", ".join(f"{label} {ms:.4f}" for label, ms in row.items()), flush=True)
+    return by_span
 
 
 # --- phase 5: graph store at scale -------------------------------------------
@@ -1423,6 +1597,141 @@ def main_path_phase(torch, topk) -> dict:
             "ivf_engine_err": ivf_err}
 
 
+# --- phase 3b: integrity-weighted retrieval -----------------------------------
+
+INTEGRITY_COPIES = 8192
+INTEGRITY_TOPICS = {
+    "profitability_analysis": "net profit",
+    "balance_sheet_analysis": "total customer deposits",
+    "financial_ratios": "basic EPS",
+    "segment_analysis": "retail banking segment revenue",
+}
+
+
+def integrity_phase(torch, work_dir: str) -> dict:
+    """Settings(integrity_weight=0.5) over a figure-tampered corpus: the
+    generated statements' 16 ICICI FY2024 chunks and 8,192 in-scope tampered
+    copies of them. Searches on the card (f32 and int8, strict and smooth)
+    against the same searches by the port on the CPU over the same
+    embeddings; then the tampered copies against their sources."""
+    import numpy as np
+
+    from ragfin_tpu_torch.config.settings import Settings
+    from ragfin_tpu_torch.data.loader import build_corpus
+    from ragfin_tpu_torch.eval.distractors import generate_inscope_distractors
+    from ragfin_tpu_torch.eval.statements import write_extract_data
+    from ragfin_tpu_torch.index.vector_index import DeviceVectorIndex
+    from ragfin_tpu_torch.retrieval.vector_rag import VectorRAG
+    from ragfin_tpu_torch.serving.engine import RagFinEngine
+
+    real = build_corpus(write_extract_data(os.path.join(work_dir, "integrity_data"), seed=44))
+    copies = generate_inscope_distractors(real, INTEGRITY_COPIES, seed=SEED + 3,
+                                          tiers=("reword", "dupe"))
+    chunks = real + copies
+    engine = RagFinEngine(Settings(embed_backend="trained", index_dtype="float32",
+                                   integrity_weight=0.5, batch_queries=False), chunks=chunks)
+    card = engine.vector_index
+    t0 = time.perf_counter()
+    engine.warmup()
+    warm_s = time.perf_counter() - t0
+    col = getattr(card, "_integrity_col", None)
+    if col is None or col.shape != (card.matrix_t.shape[1],) or not card.matrix_t.is_cuda:
+        raise AssertionError("warmup did not compute the integrity column on a card index")
+    emb = card.matrix_t[:, : card.n].T.contiguous()
+    indexes = {}
+    for dtype in ("float32", "int8"):
+        pair = []
+        for dev in ("cuda", "cpu"):
+            if dtype == "float32" and dev == "cuda":
+                idx = card
+            else:
+                idx = DeviceVectorIndex(emb.to(dev), chunks, dtype=dtype, normalize=False, device=dev)
+                idx.embedder = card.embedder
+            pair.append(idx)
+        indexes[dtype] = pair
+    by_period = {}
+    for c in real:
+        q, fy = c.period.split("_")
+        by_period.setdefault(c.period, []).append(
+            (c, f"What was ICICI Bank's {INTEGRITY_TOPICS[c.chunk_type]} in {q} {fy}?"))
+    unscoped = ["What was the net profit in Q2 FY2024?", "What was the net profit?",
+                "Total assets and borrowings", "How did retail banking segment revenue do?"]
+
+    def dicts(hits):
+        return [{"id": h.id, "score": h.score} for h in hits]
+
+    compared = 0
+    for dtype, (on_card, on_cpu) in indexes.items():
+        for strict in (True, False):
+            for weight in (0.5, 0.95):
+                kw = dict(top_k=10, consistency_weight=weight, consistency_strict=strict)
+                runs = [(unscoped + [q for pairs in by_period.values() for _, q in pairs], {})]
+                runs += [([q for _, q in pairs], {"period": p}) for p, pairs in by_period.items()]
+                for qs, scope in runs:
+                    a = on_card.search_texts(qs, **kw, **scope)
+                    b = on_cpu.search_texts(qs, **kw, **scope)
+                    for q, ha, hb in zip(qs, a, b):
+                        if not ha or not hits_agree(dicts(hb), dicts(ha), F32_TOL):
+                            raise AssertionError(f"integrity {dtype} strict={strict} w={weight} "
+                                                 f"{scope} {q!r}: card {dicts(ha)[:4]} != cpu {dicts(hb)[:4]}")
+                        compared += 1
+                for p, pairs in by_period.items():
+                    tiers = [{"period": p, "company": "ICICI Bank"}, {"period": p}, {}]
+                    qs = [q for _, q in pairs]
+                    a = on_card.search_texts_tiers(qs, tiers, **kw)
+                    b = on_cpu.search_texts_tiers(qs, tiers, **kw)
+                    for ta, tb in zip(a, b):
+                        for q, ha, hb in zip(qs, ta, tb):
+                            if not hits_agree(dicts(hb), dicts(ha), F32_TOL):
+                                raise AssertionError(f"integrity tiers {dtype} {p} {q!r} differ")
+                            compared += 1
+        rag_card = VectorRAG(on_card, integrity_weight=0.5)
+        rag_cpu = VectorRAG(on_cpu, integrity_weight=0.5)
+        for q in unscoped + [q for pairs in by_period.values() for _, q in pairs]:
+            a, b = rag_card.search(q, top_k=5), rag_cpu.search(q, top_k=5)
+            if not a or not hits_agree(b, a, F32_TOL):
+                raise AssertionError(f"integrity VectorRAG {dtype} {q!r}: {a[:3]} != {b[:3]}")
+            compared += 1
+
+    # Tampered copies that fail a check against their source, where the
+    # source passes all of its checks, over the whole ranking of the
+    # source's period: weighted, every such copy must rank below its source.
+    row = {c.id: i for i, c in enumerate(chunks)}
+    below = above_unweighted = n_sources = 0
+    for p, pairs in by_period.items():
+        qs = [q for _, q in pairs]
+        weighted = card.search_texts(qs, top_k=card.n, consistency_weight=0.5, period=p)
+        plain = card.search_texts(qs, top_k=card.n, period=p)
+        for (src, q), hw, hp in zip(pairs, weighted, plain):
+            if col[row[src.id]] < 1.0:
+                continue
+            n_sources += 1
+            for hits, weigh in ((hw, True), (hp, False)):
+                ids = [h.id for h in hits]
+                if src.id not in ids:
+                    raise AssertionError(f"source {src.id} not ranked for {q!r} (weighted {weigh})")
+                at = ids.index(src.id)
+                bad = [j for j, i in enumerate(ids)
+                       if i.startswith("inscope_") and i.endswith(src.id) and col[row[i]] < 1.0]
+                if weigh:
+                    if any(j < at for j in bad):
+                        raise AssertionError(f"a failing copy outranks {src.id} for {q!r} weighted")
+                    below += len(bad)
+                else:
+                    above_unweighted += sum(j < at for j in bad)
+    if n_sources == 0 or below == 0:
+        raise AssertionError("no failing copy was ranked against a passing source")
+    n_fail = int(np.sum(col[len(real): card.n] < 1.0))
+    print(f"integrity: {card.n} chunks ({len(real)} sources, {len(copies)} tampered copies, "
+          f"{n_fail} failing a check), warmup with the integrity column {warm_s:.1f} s; "
+          f"{compared} searches on the card (f32 and int8, strict and smooth, weights 0.5 and "
+          f"0.95, unscoped, period-scoped, tier groups, VectorRAG) equal to the port on the CPU; "
+          f"{below} failing copies of {n_sources} passing sources all rank below their source "
+          f"(unweighted, {above_unweighted} of them ranked above it)", flush=True)
+    engine.close()
+    return {"compared": compared, "below": below, "above_unweighted": above_unweighted}
+
+
 # --- phase 8: the services over HTTP -----------------------------------------
 
 
@@ -1707,8 +2016,9 @@ def main() -> int:
     ap.add_argument("--graph", action="store_true",
                     help="build, first-k alone and the graph store at scale (phases 1, 4 and 5)")
     ap.add_argument("--sweep", action="store_true",
-                    help="also time the IVF wrapper's grid rule against fixed splits (phase 6) "
-                         "and the int8 wrapper's rows per block against 64 (phase 2)")
+                    help="also time the IVF wrapper's grid rule against fixed splits (phase 6), "
+                         "the int8 wrapper's rows per block against 64 (phase 2) and "
+                         "first-k's span (phase 4)")
     args = ap.parse_args()
     try:
         import torch
@@ -1737,7 +2047,7 @@ def main() -> int:
     pass1_ptxas(_cuda)
     merge = merge_phase(torch, here)
 
-    first_k = first_k_phase(torch, graph_index)
+    first_k = first_k_phase(torch, graph_index, sweep=args.sweep)
     if args.graph:
         graph_scale_phase(torch, graph_index)
         return 0
@@ -1751,6 +2061,7 @@ def main() -> int:
     import tempfile
 
     with tempfile.TemporaryDirectory(prefix="ragfin_smoke_") as work_dir:
+        integrity_phase(torch, work_dir)
         served = served_phase(torch, topk, graph_index, work_dir)
         cli_run = cli_phase(torch, work_dir, here)
     print(f"request p50: over the wire {served['wire_p50_ms']:.2f} ms, in process "

@@ -42,6 +42,7 @@ import torch
 
 from ..config.constants import FINANCIAL_ENTITY_TYPES, SUPPORTED_QUARTERS
 from ..data.models import ExtractedEntities
+from ..ops import _cuda
 from ..utils.device import DeviceLike, resolve_device
 
 # Fact types (edge labels of the reference schema).
@@ -74,7 +75,13 @@ _RANK_MISS = -0x80000000  # sentinel strictly below any -row_idx
 _INT_MAX = 0x7FFFFFFF
 # Padded row count from which match() takes the first-k route.
 FIRST_K_MIN_ROWS = 1 << 18
-_FIRST_K_SPAN = 32768  # csrc/first_k.cu kFkSpan: hit bytes per block
+FIRST_K_SPAN = 32768  # hit bytes per block of csrc/first_k.cu (kFkSpan)
+_FIRST_K_HEADER = 2  # int64 words of its scratch before the per-span status words
+# The kernel's scratch, one per (device, stream), as (buffer, its address,
+# its status words): it carries the kernel's state from one call to the next
+# (csrc/first_k.cu), so no call allocates or clears it, and two streams
+# never share one.
+_first_k_scratch: dict[tuple[int, int], tuple[torch.Tensor, int, int]] = {}
 
 
 def masked_first_k_plain(hit: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -85,11 +92,24 @@ def masked_first_k_plain(hit: torch.Tensor, k: int) -> tuple[torch.Tensor, torch
     return ids, torch.tensor(pos.shape[0], dtype=torch.int32, device=hit.device)
 
 
+def _scratch_for(device: int, stream: int, n_spans: int) -> tuple[torch.Tensor, int, int]:
+    """The first-k scratch of (device, stream), grown to ``n_spans`` status
+    words. A new one is zeroed once, on that stream, which is the state the
+    kernel expects before its first call."""
+    entry = _first_k_scratch.get((device, stream))
+    if entry is None or entry[2] < n_spans:
+        n_status = max(n_spans, 2 * entry[2]) if entry else n_spans
+        buf = torch.zeros((_FIRST_K_HEADER + n_status,), dtype=torch.int64,
+                          device=torch.device("cuda", device))
+        entry = _first_k_scratch[(device, stream)] = (buf, buf.data_ptr(), n_status)
+    return entry
+
+
 def masked_first_k(hit: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """First ``k`` set positions of a ``[N]`` int8/bool hit vector in row
     order: ``(ids [k] int32 padded with INT32_MAX, count int32 = min(hits,
-    k))``. A CUDA tensor runs ``csrc/first_k.cu``; a CPU tensor its plain
-    version. Launches are counted in ``masked_first_k.launches``."""
+    k))``. A CUDA tensor runs ``csrc/first_k.cu`` (one launch); a CPU tensor
+    its plain version. Launches are counted in ``masked_first_k.launches``."""
     if hit.dim() != 1:
         raise ValueError(f"hit must be a vector, got {tuple(hit.shape)}")
     if hit.dtype not in (torch.int8, torch.uint8, torch.bool):
@@ -98,28 +118,21 @@ def masked_first_k(hit: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tenso
         raise ValueError(f"k must be at least 1, got {k}")
     if not hit.is_cuda:
         return masked_first_k_plain(hit, k)
-    from ..ops import _cuda
-
     n = hit.shape[0]
     if n >= 2**31:
         raise ValueError("the first-k kernel takes fewer than 2^31 rows")
-    n_blocks = -(-n // _FIRST_K_SPAN)
-    # One allocation: ids [k], count, then the kernel's scratch (per-block
-    # counts and prefixes). The call is a few microseconds of device work,
-    # so each allocation it makes shows in its time.
-    buf = torch.empty((k + 1 + 2 * n_blocks,), dtype=torch.int32, device=hit.device)
-    ids, count = buf[:k], buf[k]
+    # The one allocation of a call: what the caller keeps, ids [k] and count.
+    out = torch.empty((k + 1,), dtype=torch.int32, device=hit.device)
     if n == 0:
-        return ids.fill_(_INT_MAX), count.zero_()
+        return out[:k].fill_(_INT_MAX), out[k].zero_()
     hit = hit.contiguous()
-    base = buf.data_ptr()
-    err = _cuda.kernel("first_k")(
-        hit.data_ptr(), n, k, n_blocks, base + 4 * (k + 1), base + 4 * (k + 1 + n_blocks),
-        base, base + 4 * k, torch.cuda.current_stream(hit.device).cuda_stream,
-    )
+    device = hit.get_device()
+    stream = torch._C._cuda_getCurrentRawStream(device)
+    _, scratch, n_status = _scratch_for(device, stream, -(-n // FIRST_K_SPAN))
+    err = _cuda.kernel("first_k")(hit.data_ptr(), n, k, scratch, n_status, out.data_ptr(), stream)
     _cuda.check(err, "first_k")
     masked_first_k.launches += 1
-    return ids, count
+    return out[:k], out[k]
 
 
 masked_first_k.launches = 0

@@ -13,10 +13,14 @@ run the dense tiers with device-cached row masks.
 ``matrix.rgfi`` or ``matrix.npz``), so an index saved by either package loads
 in the other.
 
+Integrity-weighted retrieval (``consistency_weight > 0``) scales positive
+similarities by each chunk's figure-consistency multiplier on the device,
+before selection, through the dense tiers' ``score_mult``.
+
 Not ported yet (they raise ``NotImplementedError``): the hashed-featurizer
-paths (exact sparse re-rank, exact-bucket search, the integrity column, the
-refitting insert, saving or loading an index that carries a featurizer, a
-bag encoder or the ``minilm`` backend; ROADMAP Queue A item 6).
+paths (exact sparse re-rank, exact-bucket search, the refitting insert,
+saving or loading an index that carries a featurizer, a bag encoder or the
+``minilm`` backend; ROADMAP Queue A item 6).
 """
 
 from __future__ import annotations
@@ -357,7 +361,23 @@ class DeviceVectorIndex:
         return out
 
     def integrity_column(self) -> np.ndarray:
-        raise NotImplementedError("the integrity column: " + _NOT_PORTED_HASHED)
+        """Per-chunk figure-consistency multipliers (weight 1: passed /
+        checks, 1.0 where nothing is checkable), padded to the matrix width
+        with ones. Computed once per corpus on the host (the engine's warmup
+        does it), again only if the width changes."""
+        cached = getattr(self, "_integrity_col", None)
+        width = self.matrix_t.shape[1]
+        if cached is None or len(cached) != width:
+            from ..retrieval.consistency import consistency_checks
+
+            vals = np.ones(width, np.float32)
+            for i, r in enumerate(self.records):
+                p, c = consistency_checks(r.text)
+                if c:
+                    vals[i] = p / c
+            self._integrity_col = vals
+            cached = vals
+        return cached
 
     def search_texts(
         self,
@@ -371,18 +391,26 @@ class DeviceVectorIndex:
         company: Optional[str] = None,
         rerank: int = 0,
         consistency_weight: float = 0.0,
+        consistency_strict: bool = True,
     ) -> list[list[SearchHit]]:
         """Encode query texts and search, optionally metadata-filtered
         (Milvus filter expressions). ``rerank=R`` widens the device fetch to
         R; the exact sparse re-rank it feeds exists only for the hashed
         backend (not ported), so here the shortlist is cut back to
         ``top_k``. Filtered searches on an int8 index fetch
-        ``max(k + 6, 16)`` and repair the order exactly on the host."""
+        ``max(k + 6, 16)`` and repair the order exactly on the host.
+        ``consistency_weight > 0`` scales positive similarities by the
+        integrity multiplier before selection: strict (any failed check
+        costs the whole weight) or smooth (by the fraction failed)."""
         queries = list(queries)
         fetch_k = max(top_k, rerank)
         mask = self._filter_mask(period, chunk_type, predicate, periods=periods, company=company)
         q = _pad_queries(self._encode_queries(queries))
-        score_mult = self._integrity_mult() if consistency_weight > 0 else None
+        score_mult = (
+            self._integrity_mult(consistency_weight, consistency_strict)
+            if consistency_weight > 0
+            else None
+        )
         if mask is not None or score_mult is not None:
             row_mask = None
             if mask is not None:
@@ -460,8 +488,23 @@ class DeviceVectorIndex:
             )
         return embedder.encode_texts(queries)
 
-    def _integrity_mult(self):
-        raise NotImplementedError("integrity-weighted retrieval: " + _NOT_PORTED_HASHED)
+    def _integrity_mult(self, consistency_weight: float, consistency_strict: bool) -> torch.Tensor:
+        """The [N] multiplier column on the index's device, cached per
+        (weight, strict, width), so no search uploads it again."""
+        cache = getattr(self, "_integrity_mult_cache", None)
+        if cache is None:
+            cache = self._integrity_mult_cache = {}
+        key = (round(consistency_weight, 6), consistency_strict, self.matrix_t.shape[1])
+        hit = cache.get(key)
+        if hit is not None:
+            return hit
+        from ..retrieval.consistency import smooth, strictify
+
+        col = self.integrity_column()
+        scale = strictify if consistency_strict else smooth
+        mult = torch.from_numpy(scale(col, consistency_weight).astype(np.float32)).to(self.device)
+        cache[key] = mult
+        return mult
 
     def _device_cached_mask(self, key, build) -> torch.Tensor:
         """Get-or-upload a device mask under ``key`` (bounded cache): filter
@@ -500,6 +543,7 @@ class DeviceVectorIndex:
         method: str = "auto",
         rerank: int = 0,
         consistency_weight: float = 0.0,
+        consistency_strict: bool = True,
     ) -> list[list[list[SearchHit]]]:
         """All filter tiers of a query group from one [Q, N] score matrix;
         equivalent to ``[search_texts(queries, **f) for f in tier_filters]``."""
@@ -507,7 +551,8 @@ class DeviceVectorIndex:
             return [
                 self.search_texts(
                     queries, top_k=top_k, method=method, rerank=rerank,
-                    consistency_weight=consistency_weight, **f,
+                    consistency_weight=consistency_weight,
+                    consistency_strict=consistency_strict, **f,
                 )
                 for f in tier_filters
             ]
@@ -532,7 +577,11 @@ class DeviceVectorIndex:
             return []
         q = _pad_queries(self._encode_queries(queries))
         qt = self._queries_tensor(q)
-        score_mult = self._integrity_mult() if consistency_weight > 0 else None
+        score_mult = (
+            self._integrity_mult(consistency_weight, consistency_strict)
+            if consistency_weight > 0
+            else None
+        )
         fetch_k = min(max(top_k, rerank), max(self.n, 1))
         masks = self._device_tier_masks(tuple(tier_keys), device_tiers)
         if self.quantized:

@@ -38,7 +38,7 @@ KERNELS = {
         "ragfin_fused_topk_int8",
         [_P, _P, _I, _I, _P, _P, _LL, _LL, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     ),
-    "first_k": ("ragfin_first_k", [_P, _LL, _I, _I, _P, _P, _P, _P, _P]),
+    "first_k": ("ragfin_first_k", [_P, _LL, _I, _P, _I, _P, _P]),
     "ivf_topk": (
         "ragfin_ivf_topk",
         [_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P],
@@ -51,7 +51,7 @@ KERNELS = {
 }
 
 _lock = threading.Lock()
-_loaded: dict[str, ctypes._CFuncPtr] = {}
+_loaded: dict[tuple[str, tuple[str, ...]], ctypes._CFuncPtr] = {}
 # ptxas report (registers, shared memory, spills) of the last build per name.
 BUILD_LOGS: dict[str, str] = {}
 
@@ -63,9 +63,9 @@ def _nvcc() -> str:
     return found
 
 
-def _target(name: str) -> tuple[str, str]:
+def _target(name: str, defines: tuple[str, ...] = ()) -> tuple[str, str]:
     src = os.path.join(_CSRC, name + ".cu")
-    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha1(" ".join(NVCC_FLAGS + defines).encode())
     for path in sorted(os.listdir(_CSRC)):
         if path.endswith((".cu", ".cuh")) and (path == name + ".cu" or path.endswith(".cuh")):
             with open(os.path.join(_CSRC, path), "rb") as f:
@@ -73,25 +73,25 @@ def _target(name: str) -> tuple[str, str]:
     return src, os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
-def _start(name: str):
-    src, out = _target(name)
+def _start(name: str, defines: tuple[str, ...] = ()):
+    src, out = _target(name, defines)
     if os.path.exists(out):
         return None
-    cmd = [_nvcc(), *NVCC_FLAGS]
+    cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines)]
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
     cmd += ["-o", tmp, src]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, out
 
 
-def _finish(name: str, started) -> None:
+def _finish(name: str, started, defines: tuple[str, ...] = ()) -> None:
     if started is None:
         return
     proc, tmp, out = started
     log, _ = proc.communicate()
-    BUILD_LOGS[name] = log
+    BUILD_LOGS[" ".join((name, *defines))] = log
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu {' '.join(defines)}:\n{log}")
     with open(out + ".ptxas", "w") as f:
         f.write(log)
     os.replace(tmp, out)
@@ -101,7 +101,7 @@ def build_all() -> dict[str, str]:
     """Compile every kernel source in parallel (one nvcc each) and load them.
     Returns the ptxas report of each source built in this call."""
     with _lock:
-        started = {name: _start(name) for name in KERNELS if name not in _loaded}
+        started = {name: _start(name) for name in KERNELS if (name, ()) not in _loaded}
         for name, proc in started.items():
             _finish(name, proc)
     for name in KERNELS:
@@ -119,21 +119,22 @@ def build_log(name: str) -> str:
         return f.read()
 
 
-def kernel(name: str):
-    """The C entry point of kernel library ``name``, built on first use."""
-    fn = _loaded.get(name)
+def kernel(name: str, defines: tuple[str, ...] = ()):
+    """The C entry point of kernel library ``name``, built on first use;
+    ``defines`` (``"MACRO=value"``) build a variant beside it, for sweeps."""
+    fn = _loaded.get((name, defines))
     if fn is not None:
         return fn
     with _lock:
-        if name not in _loaded:
-            _finish(name, _start(name))
+        if (name, defines) not in _loaded:
+            _finish(name, _start(name, defines), defines)
             symbol, argtypes = KERNELS[name]
-            lib = ctypes.CDLL(_target(name)[1])
+            lib = ctypes.CDLL(_target(name, defines)[1])
             fn = getattr(lib, symbol)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            _loaded[name] = fn
-    return _loaded[name]
+            _loaded[(name, defines)] = fn
+    return _loaded[(name, defines)]
 
 
 def ptxas_report(log: str) -> list[tuple[str, str]]:

@@ -27,9 +27,11 @@ no checkable relations score a neutral 0.5. Internally-consistent forgeries
 Reference anchor: the chunker's derived-figure templates
 (``chunking_storing (1).py:91-330``) are what make real chunks consistent.
 
-The port keeps only :func:`consistency_checks` and its helpers (what
-:mod:`ragfin_tpu_torch.retrieval.conflict` needs), copied from
-``ragfin_tpu/retrieval/consistency.py``.
+Copied from ``ragfin_tpu/retrieval/consistency.py``: the checks that
+:mod:`ragfin_tpu_torch.retrieval.conflict` reads, and the multipliers that
+integrity-weighted retrieval scales similarities by (``smooth``,
+``strictify``; ``consistency_rerank`` serves the hashed backend's sparse
+re-rank, not ported yet).
 """
 
 from __future__ import annotations
@@ -189,3 +191,74 @@ def consistency_checks(text: str) -> tuple[int, int]:
     return passed, checks
 
 
+def consistency_multiplier(text: str, weight: float) -> float:
+    """Similarity multiplier in [1-weight, 1].
+
+    Documents with NO checkable relations stay at 1.0 (no penalty —
+    uncheckable text is not evidence of tampering); a document failing all
+    its checks is scaled by ``1 - weight``."""
+    passed, checks = consistency_checks(text)
+    if checks == 0:
+        return 1.0
+    return 1.0 - weight * (1.0 - passed / checks)
+
+
+def smooth(m, weight: float):
+    """Multiplier under the SMOOTH mode: scale by the pass fraction —
+    ``1 - weight * (1 - m)``. The single definition all scoring paths
+    (device column, host rerank, exact bucket) must share, or a future
+    formula tweak would silently diverge them. Works elementwise on numpy
+    arrays or floats."""
+    import numpy as _np
+
+    return 1.0 - weight * (1.0 - _np.asarray(m))
+
+
+def strictify(m, weight: float):
+    """Multiplier under the STRICT integrity gate: authentic statement text
+    passes every self-declared arithmetic check by construction (the figures
+    are generated by accounting identities), so ANY failed relation is
+    evidence of tampering and collapses the multiplier to ``1 - weight``.
+    Documents with no checkable relations (m == 1.0 by convention) are not
+    penalized. Works elementwise on numpy arrays or floats."""
+    import numpy as _np
+
+    return _np.where(_np.asarray(m) >= 1.0, 1.0, 1.0 - weight)
+
+
+def consistency_rerank(
+    hits: list,
+    top_k: int,
+    weight: float = 0.5,
+    cache: Optional[dict] = None,
+    strict: bool = True,
+) -> list:
+    """Re-order a hit shortlist by ``similarity * consistency_multiplier``.
+    ``weight=0`` is a no-op. The similarity used is each hit's current
+    ``score`` (post sparse re-rank); the multiplier is cached per chunk id
+    (``cache``) since chunk text is immutable in an index. ``strict`` applies
+    the all-checks-must-pass gate (see :func:`strictify`); smooth mode
+    scales by the pass fraction instead."""
+    if weight <= 0 or not hits:
+        return hits[:top_k]
+    rescored = []
+    for h in hits:
+        key = h.record.id
+        if cache is not None and key in cache:
+            m = cache[key]
+        else:
+            m = consistency_multiplier(h.record.text, 1.0)
+            if cache is not None:
+                cache[key] = m
+        # cache stores the weight-1 multiplier == passed/checks (or 1.0);
+        # rescale to the requested weight. Negative similarities are left
+        # alone — shrinking a negative score toward 0 would RAISE it.
+        f = float(strictify(m, weight)) if strict else float(smooth(m, weight))
+        rescored.append((h.score * f if h.score > 0 else h.score, h))
+    rescored.sort(key=lambda t: -t[0])
+    out = []
+    for rank, (s, h) in enumerate(rescored[:top_k]):
+        h.score = s
+        h.rank = rank
+        out.append(h)
+    return out

@@ -183,6 +183,11 @@ class RagFinEngine:
             for text in ("warmup " * 96, "warmup " * max_len):
                 for reps in (1, 8, 64):
                     embedder.encode_texts([text] * reps)
+        if self.settings.integrity_weight > 0 and hasattr(self.vector_index, "integrity_column"):
+            # The per-chunk consistency pass is host work over every chunk:
+            # it belongs to startup, not to the first weighted query. Unlike
+            # the JAX engine, a failure here is raised, not passed over.
+            self.vector_index.integrity_column()
         if self.graph.stats().get("total_facts", 0) and self.graph.entities:
             self.graph.match(
                 quarters=self.graph.quarters[:1],

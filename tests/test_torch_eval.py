@@ -205,3 +205,13 @@ def test_health_reports_an_active_weight_over_the_flat_index(setup):
     hj, ht = jeng.health(), teng.health()
     assert ht["integrity_active"] is hj["integrity_active"] is True
     assert not [i for i in ht["config_issues"] + hj["config_issues"] if "INACTIVE" in i]
+    # The weight is served, not only reported: warmup computes the column,
+    # and a search through each engine's pipeline finds the same chunk.
+    teng.warmup()
+    assert teng.vector_index._integrity_col.shape == (teng.vector_index.matrix_t.shape[1],)
+    q = "What was ICICI Bank's net profit in Q2 FY2024?"
+    a, b = jeng.vector_rag.search(q, top_k=3), teng.vector_rag.search(q, top_k=3)
+    assert b and a[0]["id"] == b[0]["id"] == "icici_q2_fy2024_profitability_analysis"
+    assert abs(a[0]["score"] - b[0]["score"]) < 2e-3
+    jeng.close()
+    teng.close()

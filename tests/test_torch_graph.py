@@ -29,6 +29,11 @@ def _hit_cases():
     last[-3:] = 1
     ragged = (rng.uniform(size=131_072 + 77) < 0.01).astype(np.int8)  # not a block multiple
     dense = np.ones((140_000,), np.int8)
+    # Hits spread over the last 32 KB span only (300,000 = 9 spans + 5,088 bytes).
+    last_span = np.zeros((300_000,), np.int8)
+    last_span[rng.choice(np.arange(9 * 32768, 300_000), 12, replace=False)] = 1
+    single = np.zeros((100_000,), np.int8)
+    single[0] = 1
     return {
         "sparse": (sparse, 20),
         "none": (np.zeros((200_000,), np.int8), 5),
@@ -37,6 +42,10 @@ def _hit_cases():
         "ragged": (ragged, 30),
         "all_hits": (dense, 30),
         "bool": (sparse.astype(bool), 20),
+        "k_1": (sparse, 1),
+        "single_hit_at_0": (single, 8),
+        "last_span_only": (last_span, 5),
+        "k_equals_hits": (ragged, int(np.count_nonzero(ragged))),
     }
 
 
@@ -322,6 +331,60 @@ class TestOnCard:
         pids, pcnt = T.masked_first_k_plain(dev_hit, k)
         assert T.masked_first_k.launches == before + 1
         assert torch.equal(ids, pids) and int(cnt) == int(pcnt)
+
+    @pytest.mark.parametrize("rate", [0.0, 1e-7, 1e-3])
+    def test_first_k_more_blocks_than_resident(self, rate):
+        """80M bytes are 2,442 blocks, more than the card holds at once: the
+        look-back also waits on spans whose blocks start in a later wave."""
+        g = torch.Generator(device="cuda").manual_seed(11)
+        hit = (torch.rand(80_000_000, generator=g, device="cuda") < rate).to(torch.int8)
+        for k in (1, 30, 5000):
+            ids, cnt = T.masked_first_k(hit, k)
+            pids, pcnt = T.masked_first_k_plain(hit, k)
+            assert torch.equal(ids, pids) and int(cnt) == int(pcnt), k
+
+    def test_first_k_back_to_back_calls(self):
+        """Twenty calls on different vectors and k with no sync between
+        them: each call's scratch state must not leak into the next."""
+        rng = np.random.default_rng(3)
+        calls = []
+        for _ in range(20):
+            n = int(rng.integers(1, 400_000))
+            hit = torch.from_numpy((rng.uniform(size=n) < 10 ** rng.uniform(-5, 0)).astype(np.int8))
+            calls.append((hit.cuda(), int(rng.integers(1, 200))))
+        got = [T.masked_first_k(h, k) for h, k in calls]
+        torch.cuda.synchronize()
+        for (h, k), (ids, cnt) in zip(calls, got):
+            pids, pcnt = T.masked_first_k_plain(h, k)
+            assert torch.equal(ids, pids) and int(cnt) == int(pcnt)
+
+    def test_first_k_two_streams(self):
+        """Calls on two streams at once each use their own scratch."""
+        cases = list(_hit_cases().values())
+        streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+        dev = [(torch.from_numpy(h).cuda(), k) for h, k in cases]
+        torch.cuda.synchronize()
+        got = []
+        for rep in range(4):
+            for i, (h, k) in enumerate(dev):
+                with torch.cuda.stream(streams[(i + rep) % 2]):
+                    got.append((h, k, T.masked_first_k(h, k)))
+        torch.cuda.synchronize()
+        for h, k, (ids, cnt) in got:
+            pids, pcnt = T.masked_first_k_plain(h, k)
+            assert torch.equal(ids, pids) and int(cnt) == int(pcnt)
+        keys = {key for key in T._first_k_scratch if key[1] in {s.cuda_stream for s in streams}}
+        assert len(keys) == 2
+
+    def test_first_k_scratch_is_reused(self):
+        hit = torch.ones(1_000_000, dtype=torch.int8, device="cuda")
+        T.masked_first_k(hit, 3)
+        key = (hit.get_device(), torch.cuda.current_stream().cuda_stream)
+        ptr = T._first_k_scratch[key][1]
+        for k in (1, 5, 30):
+            ids, cnt = T.masked_first_k(hit, k)
+            assert ids.tolist() == list(range(k)) and int(cnt) == k
+        assert T._first_k_scratch[key][1] == ptr
 
     def test_match_on_the_card_equals_the_cpu(self, big_graphs):
         cpu, _ = big_graphs
