@@ -62,6 +62,29 @@ Phases (any failure exits nonzero, and no phase carries on past one):
    over the same embeddings (ids outside 1e-5 tie bands, scores within
    1e-5), and every tampered copy that fails a check must rank below its
    source where the source passes all of its checks.
+   Hashed (3c): the hashed backend (native featurizer on the host, bag
+   encoder on the card) over 1,048,576 generated filings plus the generated
+   statements' 16 ICICI chunks, engine from Settings(embed_backend="hashed")
+   through get_engine: the native featurizer must be loaded; 4,096 sampled
+   rows bag-encoded on the card within 2e-6 of the plain CPU encode, and rows
+   with equal feature multisets bitwise equal in the served matrix; the
+   fused kernel's ids for 64 queries against a host f64 oracle; six scoped
+   and six unscoped questions through VectorRAG.search (FilteredSearch,
+   rerank 64, query expansion) and the engine's hybrid search, counters at
+   0 just before, hits equal to the dense tiers'; an int8 index loaded from
+   the f32 index's persisted matrix (no second featurize), its hits equal
+   with the int8 kernel's plain version in its place; an IVF index
+   clustered from the f32 one (nprobe 32) through the pruned kernel, equal
+   to the flat index at full probe; persist and reload of all three, equal
+   hits; integrity weight 0.5 over the first 131,072 filings and the gold: a
+   scoped bucket of at most exact_bucket_max rows answered on the host with
+   no CUDA kernel (torch.profiler) and no launch, a larger bucket on the
+   device tiers. Minilm (3d): a synthetic HF checkpoint at the
+   all-MiniLM-L6-v2 widths (seeded weights, written as model.safetensors
+   and pytorch_model.bin, equal when loaded), an engine with
+   embed_backend="minilm" over 131,072 generated filings, the card's bf16
+   forward against the CPU f32 forward (per-row cosine >= 0.999 on 256
+   chunks), six questions through the fused kernel.
 4. First-k alone: hit [10,000,000] int8 at hit rates 1e-3, 1.0 and 0, with
    three hits in the last rows, hits in the last span only, one hit at 0,
    k = 1, k = the hit count, a bool ragged and an unaligned vector, k = 30
@@ -115,7 +138,7 @@ Phases (any failure exits nonzero, and no phase carries on past one):
    this process with the ceiling kernel's counter at 0 just before.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
-kernel table as JSON.
+kernel table as JSON (rows 1-3 also carry the hashed phase's launches).
 """
 
 from __future__ import annotations
@@ -1732,6 +1755,469 @@ def integrity_phase(torch, work_dir: str) -> dict:
     return {"compared": compared, "below": below, "above_unweighted": above_unweighted}
 
 
+# --- phase 3c: the hashed backend at 1M chunks -------------------------------
+
+N_HASHED = 1_048_576
+HASHED_SAMPLE = 4096
+HASHED_ORACLE_Q = 64
+# The card's bag encode against the port's plain CPU encode (f32 sums in
+# another order).
+BAG_TOL = 2e-6
+# An IVF index persists its repair rows as f16 (the JAX format): reloaded
+# scores move by about 1e-4.
+F16_TOL = 1e-3
+
+
+def hashed_questions(chunks) -> tuple[list[str], list[str]]:
+    """Six scoped questions (a bank, period and type in the corpus) and six
+    that name no bank or period."""
+    scoped, unscoped = questions([c for c in chunks if c.company != "ICICI Bank"])
+    return scoped[:6], unscoped[:6]
+
+
+def equal_multiset_groups(featurizer, texts, batch: int = 1024) -> list[list[int]]:
+    """Groups of rows (two or more) whose canonical features and weights are
+    equal, from encodes in batches of ``batch`` (so each group's rows were
+    encoded at different padded widths where they span batches)."""
+    groups: dict[bytes, list[int]] = {}
+    for s in range(0, len(texts), batch):
+        ids, wts = featurizer.encode_batch(texts[s : s + batch])
+        nnz = (wts != 0).sum(axis=1)
+        for r in range(ids.shape[0]):
+            n = int(nnz[r])
+            groups.setdefault(ids[r, :n].tobytes() + wts[r, :n].tobytes(), []).append(s + r)
+    return [g for g in groups.values() if len(g) > 1]
+
+
+def hashed_phase(torch, topk, work_dir: str) -> dict:
+    """The hashed backend (featurizer on the host, bag encoder on the card)
+    at 1,048,576 generated filings plus the 16 generated ICICI statements:
+    f32, int8 and IVF indexes through the engine, every check failing the
+    run."""
+    import numpy as np
+
+    from ragfin_tpu_torch.config.settings import Settings
+    from ragfin_tpu_torch.data.loader import build_corpus
+    from ragfin_tpu_torch.eval.distractors import generate_distractors
+    from ragfin_tpu_torch.eval.statements import write_extract_data
+    from ragfin_tpu_torch.index.ivf_index import IVFVectorIndex
+    from ragfin_tpu_torch.index.vector_index import DeviceVectorIndex, SearchHit
+    from ragfin_tpu_torch.models import fasthash
+    from ragfin_tpu_torch.models.bag_encoder import bag_encode
+    from ragfin_tpu_torch.models.embedder import HashedEmbedder
+    from ragfin_tpu_torch.models.featurizer import HashedFeaturizer
+    from ragfin_tpu_torch.models.synonyms import expand_query
+    from ragfin_tpu_torch.ops import ivf
+    from ragfin_tpu_torch.retrieval.vector_rag import VectorRAG
+    from ragfin_tpu_torch.serving.engine import RagFinEngine, get_engine, reset_engine
+
+    # 1. The native featurizer, the port's own build of native/fasthash.cpp.
+    if not fasthash.available():
+        raise AssertionError(f"the native featurizer did not load ({fasthash.LIB_PATH})")
+    t0 = time.perf_counter()
+    gold = build_corpus(write_extract_data(os.path.join(work_dir, "hashed_data"), seed=44))
+    chunks = generate_distractors(N_HASHED, seed=SEED + 2) + gold
+    texts = [c.text for c in chunks]
+    gen_s = time.perf_counter() - t0
+    sample = texts[:N_MAIN]
+    t0 = time.perf_counter()
+    HashedFeaturizer().fit(sample)
+    fit_rate = len(sample) / (time.perf_counter() - t0)
+
+    # The engine as a user builds it: Settings(embed_backend="hashed").
+    reset_engine()
+    f32_dir = os.path.join(work_dir, "hashed_f32")
+    settings = Settings(embed_backend="hashed", index_dtype="float32", index_dir=f32_dir)
+    t0 = time.perf_counter()
+    engine = get_engine(settings=settings, chunks=chunks)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    index = engine.vector_index
+    if (index.n != len(chunks) or index.dtype != torch.float32 or not index.matrix_t.is_cuda
+            or not isinstance(index.embedder, HashedEmbedder) or not index.encoder.table.is_cuda):
+        raise AssertionError(f"unexpected hashed index {index.stats()}")
+    feat, enc = index.featurizer, index.encoder
+    t0 = time.perf_counter()
+    groups = equal_multiset_groups(feat, sample)
+    encode_rate = len(sample) / (time.perf_counter() - t0)
+    print(f"hashed: {len(chunks)} chunks ({len(gold)} gold) generated in {gen_s:.1f} s; native "
+          f"featurizer {fasthash.LIB_PATH}; fit {fit_rate:.0f} chunks/s, encode {encode_rate:.0f} "
+          f"chunks/s (host, {len(sample)} chunks); engine built (featurize + bag encode + pack) in "
+          f"{build_s:.1f} s = {len(chunks) / build_s:.0f} chunks/s; {CARD}", flush=True)
+
+    # 2. The bag encode on the card against the port's plain CPU encode, and
+    # equal feature multisets bitwise equal in the served matrix.
+    rng = np.random.default_rng(SEED)
+    rows = np.sort(rng.choice(len(chunks), HASHED_SAMPLE, replace=False))
+    ids, wts = feat.encode_batch([texts[r] for r in rows])
+    on_card = enc.encode(ids, wts)
+    plain = bag_encode(enc.table.cpu(), torch.from_numpy(ids.astype(np.int64)), torch.from_numpy(wts))
+    bag_err = float((on_card.cpu() - plain).abs().max())
+    served = index.matrix_t[:, torch.as_tensor(rows, device=index.device)].T.cpu()
+    served_err = float((served - plain).abs().max())
+    if bag_err > BAG_TOL or served_err > BAG_TOL:
+        raise AssertionError(f"bag encode on the card differs from the plain CPU encode by "
+                             f"{bag_err:.3g} (served rows {served_err:.3g}) > {BAG_TOL}")
+    cross = [g for g in groups if len({r // 1024 for r in g}) > 1]
+    if not cross:
+        raise AssertionError("no equal-multiset group spans two encode batches")
+    first = torch.as_tensor([g[0] for g in groups for _ in g[1:]], device=index.device)
+    other = torch.as_tensor([r for g in groups for r in g[1:]], device=index.device)
+    if not bool((index.matrix_t[:, first] == index.matrix_t[:, other]).all()):
+        raise AssertionError("rows with equal feature multisets differ in the served matrix")
+    n_bag = min(len(sample), 64 * 1024)
+    batch = [feat.encode_batch(sample[s : s + 1024]) for s in range(0, n_bag, 1024)]
+    batch = [(torch.as_tensor(i.astype(np.int64)).to(index.device),
+              torch.as_tensor(w).to(index.device)) for i, w in batch]
+
+    def bag_only():
+        for i, w in batch:
+            bag_encode(enc.table, i, w)
+
+    bag_ms = time_ms(torch, bag_only, runs=5, warmup=1)
+    print(f"hashed bag encode: {HASHED_SAMPLE} sampled rows on the card within {bag_err:.3g} of "
+          f"the plain CPU encode (served rows {served_err:.3g}); {len(groups)} equal-multiset "
+          f"groups in the first {len(sample)} chunks ({len(cross)} across encode batches, "
+          f"largest {max(map(len, groups))}) bitwise equal in the served matrix; bag encode on "
+          f"the card {n_bag / bag_ms * 1e3:.0f} chunks/s ({n_bag} chunks, "
+          f"{batch[0][0].shape[1]} slots; {CARD})", flush=True)
+
+    # 3. The fused kernel's ids against a host f64 oracle over the served matrix.
+    scoped, unscoped = hashed_questions(chunks)
+    qtexts = [expand_query(q) for q in scoped + unscoped]
+    qtexts += [texts[r][:240] for r in rows[: HASHED_ORACLE_Q - len(qtexts)]]
+    q = torch.as_tensor(index.embedder.encode_texts(qtexts)).to(index.device)
+    s, i = index.search_embeddings(q, top_k=10)
+    ref_s, ref_i = f64_oracle(torch, q, index.matrix_t, 11, index.n)
+    oracle_err = score_err(s.cpu().numpy(), ref_s[:, :10])
+    if oracle_err > F32_TOL or not ids_agree(ref_s, ref_i, i.cpu().numpy(), F32_TOL):
+        raise AssertionError(f"hashed: fused ids differ from the f64 oracle (err {oracle_err:.3g})")
+
+    engine.warmup()
+    rag = engine.vector_rag
+    asked = scoped + unscoped
+
+    def drive(eng) -> tuple[dict, dict]:
+        """Each question through VectorRAG.search (FilteredSearch, rerank 64,
+        query expansion) and the engine's hybrid search (its vector half is
+        the unfiltered search: the fused kernel)."""
+        served = {q: eng.vector_rag.search(q, top_k=3) for q in asked}
+        hybrid = {q: asyncio.run(eng.hybrid.hybrid_query(q, vector_k=10)) for q in asked}
+        torch.cuda.synchronize()
+        return served, hybrid
+
+    # ---- the driven run (f32): counters 0 just before, read just after ----
+    topk.cosine_topk_fused.launches = 0
+    topk.cosine_topk_fused_int8.launches = 0
+    served32, hybrid32 = drive(engine)
+    launches = {"fused_topk": topk.cosine_topk_fused.launches,
+                "fused_topk_int8": topk.cosine_topk_fused_int8.launches}
+    # ------------------------------------------------------------------------
+    if launches["fused_topk"] < len(asked):
+        raise AssertionError(f"{len(asked)} hashed hybrid requests made {launches} fused launches")
+
+    # 4. Served hits against the same searches on the dense tiers.
+    def against_dense(idx, served: dict, label: str) -> None:
+        searcher = VectorRAG(idx, integrity_weight=0.0)._searcher
+        wide = rag._detection_fetch(3)
+        bad = []
+        for q in asked:
+            plan = [h.to_dict(False) for h in searcher.search_texts([q], top_k=wide)[0]]
+            dense = [h.to_dict(False) for h in searcher.search_texts([q], top_k=wide, method="dense")[0]]
+            flat = [h.to_dict(False) for h in idx.search_texts([q], top_k=10)[0]]
+            flat_dense = [h.to_dict(False) for h in idx.search_texts([q], top_k=10, method="dense")[0]]
+            if not (served[q] and hits_agree(dense, plan, F32_TOL)
+                    and hits_agree(plan[:3], served[q], F32_TOL)
+                    and hits_agree(flat_dense, flat, F32_TOL)):
+                bad.append(q)
+        if bad:
+            raise AssertionError(f"hashed {label}: served hits differ from the dense tiers for {bad}")
+
+    against_dense(index, served32, "f32")
+    breakdown = request_breakdown(torch, rag, unscoped[0])
+    shortlist = index.search_texts([expand_query(unscoped[0])], top_k=64)[0]
+
+    def rerank_once():
+        index._sparse_rerank(expand_query(unscoped[0]),
+                             [SearchHit(h.score, h.record, h.rank) for h in shortlist], 3)
+
+    t0 = time.perf_counter()
+    for _ in range(10):
+        rerank_once()
+    rerank_ms = (time.perf_counter() - t0) * 100
+    print(f"hashed f32: {2 * len(asked)} requests ({len(scoped)} scoped and {len(unscoped)} "
+          f"unscoped questions through VectorRAG.search and hybrid_query), launches {launches}; "
+          f"fused ids equal to the f64 oracle for {len(qtexts)} queries (max err "
+          f"{oracle_err:.3g}); served hits equal to the dense tiers; _sparse_rerank of 64 "
+          f"hits {rerank_ms:.2f} ms on the host", flush=True)
+
+    # 7. Persist and reload the f32 index.
+    t0 = time.perf_counter()
+    engine.persist()
+    persist_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = DeviceVectorIndex.load(f32_dir)
+    torch.cuda.synchronize()
+    reload_s = time.perf_counter() - t0
+
+    def same_hits(a, b, label: str, tol: float = F32_TOL) -> None:
+        for kw in ({"rerank": 64}, {}):
+            ha, hb = a.search_texts(asked, top_k=10, **kw), b.search_texts(asked, top_k=10, **kw)
+            bad = [q for q, x, y in zip(asked, ha, hb)
+                   if not x or not hits_agree([h.to_dict(False) for h in x],
+                                              [h.to_dict(False) for h in y], tol)]
+            if bad:
+                raise AssertionError(f"hashed {label}: reloaded hits differ ({kw}) for {bad}")
+
+    same_hits(index, again, "f32")
+
+    # The int8 index from the reloaded f32 index's matrix (the persisted
+    # one: the corpus is featurized once), with its featurizer and encoder.
+    t0 = time.perf_counter()
+    idx8 = DeviceVectorIndex(again.matrix_t[:, : again.n].T, again.records, dtype="int8",
+                             normalize=False)
+    idx8._attach(again.embedder)
+    torch.cuda.synchronize()
+    build8_s = time.perf_counter() - t0
+    del again
+    engine8 = RagFinEngine(Settings(embed_backend="hashed", index_dtype="int8", index_dir=""),
+                           vector_index=idx8)
+    engine8.warmup()
+    topk.cosine_topk_fused.launches = 0
+    topk.cosine_topk_fused_int8.launches = 0
+    served8, hybrid8 = drive(engine8)
+    launches8 = topk.cosine_topk_fused_int8.launches
+    if launches8 < len(asked):
+        raise AssertionError(f"{len(asked)} hashed int8 hybrid requests made {launches8} int8 launches")
+    launches["fused_topk_int8"] = launches8
+    against_dense(idx8, served8, "int8")
+    # The int8 shortlist (16 wide, then the exact host re-score) need not
+    # hold the f32 top 10 of a hashed corpus, so the int8 hits are held to
+    # the same requests with the kernel's plain version in its place.
+    from ragfin_tpu_torch.index import vector_index as vi_mod
+
+    kernel8 = vi_mod.cosine_topk_fused_int8
+    vi_mod.cosine_topk_fused_int8 = (
+        lambda q_, c_, s_, k_, n_valid=None: topk.fused_topk_int8_plain(q_, c_, s_, k_, n_valid))
+    try:
+        plain8, plain_hybrid8 = drive(engine8)
+    finally:
+        vi_mod.cosine_topk_fused_int8 = kernel8
+    diff8 = [q for q in asked if not hits_agree(plain8[q], served8[q], F32_TOL)
+             or not hits_agree(plain_hybrid8[q]["chunks"], hybrid8[q]["chunks"], F32_TOL)]
+    if diff8:
+        raise AssertionError(f"hashed int8: hits through the kernel and through its plain "
+                             f"version differ for {diff8}")
+    int8_dir = os.path.join(work_dir, "hashed_int8")
+    t0 = time.perf_counter()
+    idx8.save(int8_dir)
+    persist8_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again8 = DeviceVectorIndex.load(int8_dir)
+    reload8_s = time.perf_counter() - t0
+    if not again8.quantized:
+        raise AssertionError("the int8 index reloaded as another dtype")
+    same_hits(idx8, again8, "int8")
+    del again8
+    engine8.close()
+    print(f"hashed int8: quantized from the reloaded f32 index's matrix in {build8_s:.1f} s; "
+          f"{2 * len(asked)} requests, int8 kernel launches {launches8}, hits equal to the same "
+          f"requests through the kernel's plain version", flush=True)
+
+    # 5. The IVF index from the f32 one, requests through the pruned kernel.
+    t0 = time.perf_counter()
+    ivf_index = IVFVectorIndex.from_dense(index, nprobe=IVF_NPROBE)
+    torch.cuda.synchronize()
+    ivf_build_s = time.perf_counter() - t0
+    engine_ivf = RagFinEngine(Settings(embed_backend="hashed", index_type="ivf", index_dir=""),
+                              vector_index=ivf_index)
+    engine_ivf.vector_rag.search(asked[0], top_k=3)  # first call pays one-time costs
+    torch.cuda.synchronize()
+    ivf.pruned_topk.launches = 0
+    served_ivf = {q: engine_ivf.vector_rag.search(q, top_k=3) for q in asked}
+    torch.cuda.synchronize()
+    launches["ivf_topk"] = ivf.pruned_topk.launches
+    if launches["ivf_topk"] < len(asked) or not all(served_ivf.values()):
+        raise AssertionError(f"{len(asked)} hashed IVF requests made {launches['ivf_topk']} launches")
+    n_cells = ivf_index.ivf.n_cells
+    full = ivf_index.search_texts(asked, top_k=10, nprobe=n_cells)
+    flat = index.search_texts(asked, top_k=10)
+    bad = [q for q, a, b in zip(asked, full, flat)
+           if not hits_agree([h.to_dict(False) for h in b], [h.to_dict(False) for h in a], F32_TOL)]
+    if bad:
+        raise AssertionError(f"hashed IVF at full probe differs from the flat index for {bad}")
+    ivf_dir = os.path.join(work_dir, "hashed_ivf")
+    t0 = time.perf_counter()
+    ivf_index.save(ivf_dir)
+    persist_ivf_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again_ivf = IVFVectorIndex.load(ivf_dir)
+    reload_ivf_s = time.perf_counter() - t0
+    if not isinstance(again_ivf.embedder, HashedEmbedder):
+        raise AssertionError("the reloaded IVF index lost its hashed embedder")
+    ha, hb = ivf_index.search_texts(asked, top_k=10), again_ivf.search_texts(asked, top_k=10)
+    bad = [q for q, x, y in zip(asked, ha, hb)
+           if not hits_agree([h.to_dict(False) for h in x], [h.to_dict(False) for h in y], F16_TOL)]
+    if bad:
+        raise AssertionError(f"hashed IVF: reloaded hits differ for {bad}")
+    del again_ivf
+    engine_ivf.close()
+    print(f"hashed IVF: {n_cells} cells clustered from the f32 index in {ivf_build_s:.1f} s; "
+          f"{len(asked)} requests, pruned kernel launches {launches['ivf_topk']}; full probe "
+          f"equal to the flat index", flush=True)
+    print(f"hashed persist / reload seconds: f32 {persist_s:.1f} / {reload_s:.1f}, int8 "
+          f"{persist8_s:.1f} / {reload8_s:.1f}, IVF {persist_ivf_s:.1f} / {reload_ivf_s:.1f}; "
+          f"reloaded hits equal (IVF's f16 repair rows within {F16_TOL})", flush=True)
+
+    # 6. Integrity mode on the card: a scoped bucket of at most
+    # exact_bucket_max rows is scored exactly on the host, with no device
+    # work; a larger one goes to the device tiers. On the first N_MAIN chunks
+    # (and the gold): the integrity column is host work at ~10k chunks/s.
+    sub = list(range(N_MAIN)) + list(range(N_HASHED, len(chunks)))
+    sub_t = torch.as_tensor(sub, device=index.device)
+    small = DeviceVectorIndex(index.matrix_t[:, sub_t].T, [chunks[r] for r in sub], normalize=False)
+    small.embedder, small.featurizer, small.encoder = index.embedder, feat, enc
+    t0 = time.perf_counter()
+    small.integrity_column()
+    column_s = time.perf_counter() - t0
+    weighted = VectorRAG(small, integrity_weight=0.5)
+    searcher = weighted._searcher
+    q0 = scoped[0]
+    plan = searcher._tier_groups(q0, *searcher._vocab())[0]
+    sizes = [int(small._filter_mask(None, f.get("chunk_type"), None, periods=f.get("periods"),
+                                    company=f.get("company"))[: small.n].sum()) for f in plan]
+    if not sizes or max(sizes) > small.exact_bucket_max or min(sizes) < 1:
+        raise AssertionError(f"scoped buckets {sizes} for {q0!r}")
+    counters = (topk.cosine_topk_fused, topk.cosine_topk_fused_int8, ivf.pruned_topk)
+    for c in counters:
+        c.launches = 0
+    exact_kernels, exact_wall, _ = kernel_profile(torch, lambda: weighted.search(q0, top_k=3), 3)
+    exact_hits = weighted.search(q0, top_k=3)
+    if exact_kernels or any(c.launches for c in counters) or not exact_hits:
+        raise AssertionError(f"the exact-bucket path ran device work: {exact_kernels}")
+    company = plan[0].get("company")
+    big = int(small._filter_mask(periods=sorted({c.period for c in small.records}))[: small.n].sum())
+    big_kernels, _, _ = kernel_profile(torch, lambda: small.search_texts(
+        [q0], top_k=3, periods=sorted({c.period for c in small.records}),
+        consistency_weight=0.5), 3)
+    if big <= small.exact_bucket_max or not big_kernels:
+        raise AssertionError(f"a {big}-row bucket did not go to the device tiers")
+    print(f"hashed integrity (weight 0.5, {small.n} chunks, column {column_s:.1f} s): {q0!r} "
+          f"(company {company!r}) has buckets of {sizes} rows <= {small.exact_bucket_max}: "
+          f"exact host path, no CUDA kernel and no launch, {exact_wall:.2f} ms a request; a "
+          f"{big}-row bucket ran {sum(n for n, _ in big_kernels.values())} CUDA kernels on the "
+          f"device tiers", flush=True)
+    engine.close()
+    reset_engine()
+    return {"launches": launches, "breakdown": breakdown, "rerank_ms": rerank_ms}
+
+
+# --- phase 3d: the minilm backend ------------------------------------------------
+
+MINILM_COS = 0.999
+MINILM_CHECK_ROWS = 256
+
+
+def minilm_phase(torch, topk, work_dir: str) -> dict:
+    """A synthetic HF-layout checkpoint at the public all-MiniLM-L6-v2
+    widths (seeded weights, written here; nothing is downloaded), loaded from
+    both formats; an engine with embed_backend="minilm" over N_MAIN
+    generated filings; the card's bf16 forward against the port's f32 CPU
+    forward; six questions through the fused kernel."""
+    import dataclasses
+
+    import numpy as np
+
+    from ragfin_tpu_torch.config.settings import Settings
+    from ragfin_tpu_torch.eval.distractors import generate_distractors
+    from ragfin_tpu_torch.models import minilm
+    from ragfin_tpu_torch.models.embedder import MiniLMEmbedder
+    from ragfin_tpu_torch.serving.engine import RagFinEngine
+    from ragfin_tpu_torch.utils.synthetic import wordpiece_vocab
+
+    pool = generate_distractors(int(N_MAIN * 1.16), seed=SEED + 4)
+    chunks = [c for c in pool if c.company != "ICICI Bank"][:N_MAIN]
+    words = sorted({w.strip(".,?:;()%'") for c in chunks[:4096] for w in c.text.lower().split()})
+    config = minilm.MiniLMConfig()
+    state = minilm.init_params(config, seed=SEED + 4)
+    vocab = wordpiece_vocab([w for w in words if w], config.vocab_size)
+    ckpt = os.path.join(work_dir, "minilm_ckpt")
+    t0 = time.perf_counter()
+    minilm.save_hf_weights(ckpt, state, vocab=vocab)
+    write_s = time.perf_counter() - t0
+    only = {}
+    for fmt, name in (("safetensors", "model.safetensors"), ("bin", "pytorch_model.bin")):
+        d = os.path.join(work_dir, f"minilm_{fmt}")
+        os.makedirs(d, exist_ok=True)
+        os.link(os.path.join(ckpt, name), os.path.join(d, name))
+        only[fmt] = minilm.load_hf_weights(d, config)
+    if set(only["safetensors"]) != set(state) or any(
+            not torch.equal(only["safetensors"][k], only["bin"][k])
+            or not torch.equal(only["bin"][k], state[k]) for k in state):
+        raise AssertionError("model.safetensors and pytorch_model.bin load different weights")
+
+    t0 = time.perf_counter()
+    engine = RagFinEngine(Settings(embed_backend="minilm", minilm_checkpoint=ckpt, index_dir=""),
+                          chunks=chunks)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    index = engine.vector_index
+    emb = index.embedder
+    if (not isinstance(emb, MiniLMEmbedder) or not emb.pretrained or index.n != len(chunks)
+            or not index.matrix_t.is_cuda or engine.settings.validate()):
+        raise AssertionError(f"unexpected minilm engine: {emb.state_dict()} {index.stats()}")
+    texts = [c.text for c in chunks[:MINILM_CHECK_ROWS]]
+    card = emb.encode_texts(texts)
+    cpu = minilm.MiniLMEncoder(dataclasses.replace(config, dtype=torch.float32))
+    cpu.load_state_dict(state)
+    ids, mask = emb.tokenizer.encode_batch(texts)
+    with torch.inference_mode():
+        ref = cpu.eval()(torch.from_numpy(ids.astype(np.int64)), torch.from_numpy(mask)).numpy()
+    cos = float((card * ref).sum(1).min())
+    if cos < MINILM_COS:
+        raise AssertionError(f"minilm: card bf16 against CPU f32 forward, min cosine {cos:.5f}")
+    ids_t = torch.from_numpy(ids.astype(np.int64)).to(index.device)
+    mask_t = torch.from_numpy(mask).to(index.device)
+    reps = 16
+
+    def encode_only():
+        with torch.inference_mode():
+            for _ in range(reps):
+                emb.model(ids_t, mask_t)
+
+    enc_ms = time_ms(torch, encode_only, runs=3, warmup=1)
+    engine.warmup()
+    _, unscoped = questions(chunks)
+    asked = unscoped[:6]
+    rag = engine.vector_rag
+    rag.search(asked[0], top_k=3)
+    torch.cuda.synchronize()
+    # ---- the driven run: counters 0 just before, read just after -----------
+    topk.cosine_topk_fused.launches = 0
+    served = {q: rag.search(q, top_k=3) for q in asked}
+    torch.cuda.synchronize()
+    launches = topk.cosine_topk_fused.launches
+    # ------------------------------------------------------------------------
+    if launches < len(asked) or not all(served.values()):
+        raise AssertionError(f"{len(asked)} minilm requests made {launches} fused launches")
+    searcher = rag._searcher
+    bad = [q for q in asked
+           if not hits_agree([h.to_dict(False) for h in searcher.search_texts([q], top_k=3, method="dense")[0]],
+                             served[q], BATCH_TOL)]
+    if bad:
+        raise AssertionError(f"minilm served hits differ from the dense tier for {bad}")
+    print(f"minilm: checkpoint ({config.num_layers} layers, hidden {config.hidden_size}, vocab "
+          f"{config.vocab_size}) written in {write_s:.1f} s, safetensors and pytorch_model.bin "
+          f"load equal weights; engine over {len(chunks)} chunks built in {build_s:.1f} s = "
+          f"{len(chunks) / build_s:.0f} chunks/s (encoder forward alone "
+          f"{reps * len(texts) / enc_ms * 1e3:.0f} chunks/s at {ids.shape[1]} tokens); card bf16 "
+          f"against CPU f32 forward on {len(texts)} chunks: min cosine {cos:.5f}; {len(asked)} "
+          f"requests, fused launches {launches}, hits equal to the dense tier; {CARD}", flush=True)
+    breakdown = request_breakdown(torch, rag, asked[0])
+    engine.close()
+    return {"launches": launches, "breakdown": breakdown, "cos": cos}
+
+
 # --- phase 8: the services over HTTP -----------------------------------------
 
 
@@ -2062,6 +2548,8 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory(prefix="ragfin_smoke_") as work_dir:
         integrity_phase(torch, work_dir)
+        hashed = hashed_phase(torch, topk, work_dir)
+        minilm_run = minilm_phase(torch, topk, work_dir)
         served = served_phase(torch, topk, graph_index, work_dir)
         cli_run = cli_phase(torch, work_dir, here)
     print(f"request p50: over the wire {served['wire_p50_ms']:.2f} ms, in process "
@@ -2080,6 +2568,7 @@ def main() -> int:
         table.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": main_path["launches"][name],
+            "hashed_launches": hashed["launches"][name],
             "max_abs_err": kern["errs"][name],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -2090,6 +2579,7 @@ def main() -> int:
         "name": "ivf_topk", "route": "cuda", "source": "ragfin_tpu_torch/csrc/ivf_topk.cu",
         "replaces": "ragfin_tpu/ops/ivf.py:293",
         "launches": main_path["launches"]["ivf_topk"],
+        "hashed_launches": hashed["launches"]["ivf_topk"],
         "max_abs_err": max(ivf_alone["max_abs_err"], main_path["ivf_engine_err"]),
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -2126,8 +2616,9 @@ def main() -> int:
         "shape": {"case": "nested_while", "rows": 64, "cols": 256, "sub": 128, "k": 10},
         "cases": merge["cases"],
     })
+    table[0]["minilm_launches"] = minilm_run["launches"]
     for row in table:
-        if row["launches"] < 1:
+        if row["launches"] < 1 or row.get("hashed_launches", 1) < 1:
             return fail(f"kernel {row['name']} was launched no time on its path")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -15,9 +15,9 @@ runs, ``multi_bank_extractor`` batch loop) with one CLI:
 Counterpart of ``ragfin_tpu/cli.py`` with the same subcommands, flags and
 defaults. Everything that touches an index runs on the CUDA card and raises
 without one; ``RAGFIN_DEVICE=cpu`` asks for the CPU (the counterpart of
-pinning ``JAX_PLATFORMS``). ``build-index`` embeds with the backend the
-settings name (the trained encoder), where the JAX command always takes the
-hashed one; ``train`` is parsed and raises until training is ported.
+pinning ``JAX_PLATFORMS``). ``build-index`` embeds with the hashed backend,
+as the JAX command does; ``train`` is parsed and raises until training is
+ported.
 """
 
 from __future__ import annotations
@@ -45,19 +45,11 @@ def cmd_build_index(args) -> int:
     from .extraction.service import rule_based_extract
     from .index.graph_index import GraphIndex
     from .index.vector_index import DeviceVectorIndex
-    from .models.embedder import make_embedder
     from .utils.device import resolve_device
 
-    settings = get_config()
-    device = resolve_device(settings.device)
+    device = resolve_device(get_config().device)
     chunks = build_corpus(args.data)
-    index = DeviceVectorIndex.build(
-        chunks,
-        embedder=make_embedder(
-            settings.embed_backend, checkpoint=settings.trained_checkpoint, device=device
-        ),
-        device=device,
-    )
+    index = DeviceVectorIndex.build(chunks, device=device)
     if getattr(args, "index_type", "flat") == "ivf":
         from .index.ivf_index import IVFVectorIndex
 

@@ -33,8 +33,8 @@ def load_dotenv(path: str = ".env") -> None:
 
 def _default_backend() -> str:
     """The trained encoder is the default wherever its committed checkpoint
-    exists; the hashed backend the JAX package falls back to is not ported
-    yet (ROADMAP Queue A item 6)."""
+    exists; without it, the weight-free hashed backend rather than random
+    weights."""
     from ..models.domain_encoder import DEFAULT_CKPT_DIR
 
     if os.path.exists(os.path.join(DEFAULT_CKPT_DIR, "config.json")):
@@ -62,6 +62,7 @@ class Settings:
 
     default_top_k: int = 3
     embed_backend: str = field(default_factory=lambda: _default_backend())
+    minilm_checkpoint: Optional[str] = None  # a local HF checkpoint directory
     trained_checkpoint: Optional[str] = None  # None -> packaged default dir
     # "float32" (exact f32 scoring) | "bfloat16" | "int8" (per-column scales)
     index_dtype: str = "float32"
@@ -93,12 +94,11 @@ class Settings:
             issues.append(f"no API key configured for '{self.default_model}'")
         if self.default_top_k < 1:
             issues.append("default_top_k must be >= 1")
-        if self.embed_backend != "trained":
-            issues.append(
-                f"embed_backend '{self.embed_backend}' is not ported "
-                "(ROADMAP Queue A item 6); only 'trained' runs"
-            )
-        else:
+        if self.embed_backend not in ("hashed", "trained", "minilm"):
+            issues.append(f"unknown embed_backend '{self.embed_backend}'")
+        if self.embed_backend == "minilm" and not self.minilm_checkpoint:
+            issues.append("embed_backend=minilm without minilm_checkpoint (random init)")
+        if self.embed_backend == "trained":
             from ..models.domain_encoder import DEFAULT_CKPT_DIR
 
             ckpt = self.trained_checkpoint or DEFAULT_CKPT_DIR
@@ -110,10 +110,16 @@ class Settings:
             issues.append(f"unknown index_type '{self.index_type}'")
         if self.ivf_nprobe < 1:
             issues.append("ivf_nprobe must be >= 1")
-        if self.integrity_weight > 0 and self.index_type == "ivf":
+        if self.integrity_weight > 0 and (
+            self.index_type == "ivf" or self.embed_backend != "hashed"
+        ):
+            # Integrity weighting runs through the FilteredSearch pipeline
+            # with the hashed featurizer; otherwise it may not apply (the
+            # engine's health() reports `integrity_active`, the runtime truth).
             issues.append(
                 "integrity_weight > 0 requires the FilteredSearch pipeline "
-                "(index_type=flat); with index_type=ivf it never applies"
+                "(index_type=flat + embed_backend=hashed); as configured it "
+                "may never apply — check /health integrity_active"
             )
         return issues
 
@@ -133,6 +139,7 @@ def _from_env() -> Settings:
         device=env.get("RAGFIN_DEVICE") or None,
         default_top_k=int(env.get("RAGFIN_TOP_K", "3")),
         embed_backend=env.get("RAGFIN_EMBED_BACKEND", _default_backend()),
+        minilm_checkpoint=env.get("RAGFIN_MINILM_CHECKPOINT"),
         trained_checkpoint=env.get("RAGFIN_TRAINED_CHECKPOINT"),
         index_dtype=env.get("RAGFIN_INDEX_DTYPE", "float32"),
         index_type=env.get("RAGFIN_INDEX_TYPE", "flat"),

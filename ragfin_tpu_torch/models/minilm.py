@@ -16,13 +16,19 @@ module's numerics:
   floor.
 
 :func:`params_from_flax` carries a Flax parameter tree (``{"params": ...}``,
-as ``load_encoder_checkpoint`` returns it) across as a ``state_dict``.
+as ``load_encoder_checkpoint`` returns it) across as a ``state_dict``;
+:func:`load_hf_weights` reads a local HF BERT/MiniLM checkpoint directory
+(``model.safetensors`` through the port's own reader, or
+``pytorch_model.bin``) straight into one; :func:`init_params` draws seeded
+random weights with Flax's initialiser shapes (not its draws).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
+import os
 
 import numpy as np
 import torch
@@ -186,4 +192,173 @@ def params_from_flax(flax_params: dict) -> dict[str, torch.Tensor]:
             sd[f"layers.{i}.{norm}.weight"] = t(layer[norm]["scale"])
             sd[f"layers.{i}.{norm}.bias"] = t(layer[norm]["bias"])
         i += 1
+    return sd
+
+
+def minilm_apply(model: MiniLMEncoder, side: dict) -> torch.Tensor:
+    """Encoder-apply adapter for training: ``side`` holds ``input_ids`` and
+    ``attention_mask`` [B, S]."""
+    return model(side["input_ids"], side["attention_mask"])
+
+
+def init_params(config: MiniLMConfig = MiniLMConfig(), seed: int = 0) -> dict[str, torch.Tensor]:
+    """Seeded random :class:`MiniLMEncoder` ``state_dict`` with Flax's
+    initialisers: Dense kernels truncated normal (2 sigma) of std
+    1/sqrt(fan_in), embeddings normal of std 1/sqrt(hidden), biases 0,
+    LayerNorm scales 1. Drawn from one ``torch.Generator``, in the order of
+    the module's parameters."""
+    gen = torch.Generator().manual_seed(int(seed))
+    sd = {}
+    for name, shape in ((n, p.shape) for n, p in MiniLMEncoder(config).state_dict().items()):
+        if name.endswith("bias"):
+            t = torch.zeros(shape)
+        elif "norm" in name:
+            t = torch.ones(shape)
+        elif "embeddings" in name:
+            t = torch.empty(shape).normal_(0.0, 1.0 / math.sqrt(shape[1]), generator=gen)
+        else:  # Linear weight [out, in]
+            std = 1.0 / math.sqrt(shape[1]) / 0.87962566103423978
+            t = torch.nn.init.trunc_normal_(
+                torch.empty(shape), std=std, a=-2 * std, b=2 * std, generator=gen
+            )
+        sd[name] = t
+    return sd
+
+
+# --- HF checkpoint import (a local directory; nothing is downloaded) ---------
+
+_ST_DTYPES = {
+    "F64": np.float64, "F32": np.float32, "F16": np.float16, "BF16": np.uint16,
+    "I64": np.int64, "I32": np.int32, "I16": np.int16, "I8": np.int8,
+    "U8": np.uint8, "BOOL": np.bool_,
+}
+_ST_NAMES = {np.dtype(v): k for k, v in _ST_DTYPES.items() if k != "BF16"}
+
+
+def read_safetensors(path: str) -> dict[str, np.ndarray]:
+    """Tensors of a ``.safetensors`` file as numpy arrays (BF16 widened to
+    f32): an 8-byte little-endian header length, a JSON header of ``dtype``,
+    ``shape`` and ``data_offsets`` per tensor, then the raw bytes."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if len(data) < 8:
+        raise ValueError(f"{path}: not a safetensors file")
+    n = int.from_bytes(data[:8], "little")
+    if n > len(data) - 8:
+        raise ValueError(f"{path}: header length {n} past the end of the file")
+    header = json.loads(data[8 : 8 + n])
+    body = memoryview(data)[8 + n :]
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        dtype = np.dtype(_ST_DTYPES[info["dtype"]])
+        shape = tuple(int(d) for d in info["shape"])
+        start, end = (int(o) for o in info["data_offsets"])
+        if not 0 <= start <= end <= len(body) or end - start != dtype.itemsize * math.prod(shape):
+            raise ValueError(f"{path}: tensor {name!r} has offsets {start}:{end} for {shape}")
+        arr = np.frombuffer(body[start:end], dtype=dtype).reshape(shape)
+        if info["dtype"] == "BF16":
+            arr = (arr.astype(np.uint32) << 16).view(np.float32)
+        out[name] = arr.copy()
+    return out
+
+
+def write_safetensors(path: str, tensors: dict[str, np.ndarray]) -> None:
+    """Write numpy arrays (f64/f32/f16, integer or bool) as ``.safetensors``."""
+    header, offset, blobs = {}, 0, []
+    for name, arr in tensors.items():
+        arr = np.ascontiguousarray(arr)
+        blob = arr.astype(arr.dtype.newbyteorder("<"), copy=False).tobytes()
+        header[name] = {"dtype": _ST_NAMES[arr.dtype], "shape": list(arr.shape),
+                        "data_offsets": [offset, offset + len(blob)]}
+        offset += len(blob)
+        blobs.append(blob)
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for blob in blobs:
+            f.write(blob)
+
+
+def save_hf_weights(
+    path: str, state_dict: dict, vocab=None, formats=("safetensors", "bin")
+) -> None:
+    """Write a :class:`MiniLMEncoder` ``state_dict`` as a HF BERT checkpoint
+    directory (the inverse of :func:`load_hf_weights`): ``model.safetensors``
+    and/or ``pytorch_model.bin``, and ``vocab.txt`` when ``vocab`` (tokens in
+    id order) is given."""
+    hf = {
+        "embeddings.word_embeddings.weight": state_dict["word_embeddings.weight"],
+        "embeddings.position_embeddings.weight": state_dict["position_embeddings.weight"],
+        "embeddings.token_type_embeddings.weight": state_dict["token_type_embeddings.weight"],
+        "embeddings.LayerNorm.weight": state_dict["embeddings_norm.weight"],
+        "embeddings.LayerNorm.bias": state_dict["embeddings_norm.bias"],
+    }
+    i = 0
+    while f"layers.{i}.ffn_norm.weight" in state_dict:
+        for hf_key, ours in {**_HF_LINEARS, **_HF_NORMS}.items():
+            for part in ("weight", "bias"):
+                hf[f"encoder.layer.{i}.{hf_key}.{part}"] = state_dict[f"layers.{i}.{ours}.{part}"]
+        i += 1
+    os.makedirs(path, exist_ok=True)
+    hf = {k: v.detach().cpu().float().contiguous() for k, v in hf.items()}
+    if "safetensors" in formats:
+        write_safetensors(os.path.join(path, "model.safetensors"),
+                          {k: v.numpy() for k, v in hf.items()})
+    if "bin" in formats:
+        torch.save(hf, os.path.join(path, "pytorch_model.bin"))
+    if vocab is not None:
+        with open(os.path.join(path, "vocab.txt"), "w", encoding="utf-8") as f:
+            f.write("\n".join(vocab) + "\n")
+
+
+_HF_LINEARS = {
+    "attention.self.query": "attention.query",
+    "attention.self.key": "attention.key",
+    "attention.self.value": "attention.value",
+    "attention.output.dense": "attention.output",
+    "intermediate.dense": "intermediate",
+    "output.dense": "ffn_output",
+}
+_HF_NORMS = {"attention.output.LayerNorm": "attention_norm", "output.LayerNorm": "ffn_norm"}
+
+
+def load_hf_weights(path: str, config: MiniLMConfig = MiniLMConfig()) -> dict[str, torch.Tensor]:
+    """A local HF BERT/MiniLM checkpoint directory (``model.safetensors`` or
+    ``pytorch_model.bin``) -> :class:`MiniLMEncoder` ``state_dict``. Linear
+    weights keep torch's ``[out, in]``; keys may carry a ``bert.`` or
+    ``encoder.`` prefix; a missing tensor raises ``KeyError``."""
+    st_path = os.path.join(path, "model.safetensors")
+    pt_path = os.path.join(path, "pytorch_model.bin")
+    if os.path.exists(st_path):
+        tensors = {k: torch.from_numpy(v) for k, v in read_safetensors(st_path).items()}
+    elif os.path.exists(pt_path):
+        tensors = torch.load(pt_path, map_location="cpu", weights_only=True)
+    else:
+        raise FileNotFoundError(f"no checkpoint under {path}")
+
+    def t(name: str) -> torch.Tensor:
+        for prefix in ("", "bert.", "encoder."):
+            if prefix + name in tensors:
+                return tensors[prefix + name].to(torch.float32).contiguous()
+        raise KeyError(name)
+
+    sd = {
+        "word_embeddings.weight": t("embeddings.word_embeddings.weight"),
+        "position_embeddings.weight": t("embeddings.position_embeddings.weight"),
+        "token_type_embeddings.weight": t("embeddings.token_type_embeddings.weight"),
+        "embeddings_norm.weight": t("embeddings.LayerNorm.weight"),
+        "embeddings_norm.bias": t("embeddings.LayerNorm.bias"),
+    }
+    for i in range(config.num_layers):
+        hf = f"encoder.layer.{i}."
+        for hf_key, ours in _HF_LINEARS.items():
+            sd[f"layers.{i}.{ours}.weight"] = t(hf + hf_key + ".weight")
+            sd[f"layers.{i}.{ours}.bias"] = t(hf + hf_key + ".bias")
+        for hf_key, ours in _HF_NORMS.items():
+            sd[f"layers.{i}.{ours}.weight"] = t(hf + hf_key + ".weight")
+            sd[f"layers.{i}.{ours}.bias"] = t(hf + hf_key + ".bias")
     return sd

@@ -30,8 +30,8 @@ Reference anchor: the chunker's derived-figure templates
 Copied from ``ragfin_tpu/retrieval/consistency.py``: the checks that
 :mod:`ragfin_tpu_torch.retrieval.conflict` reads, and the multipliers that
 integrity-weighted retrieval scales similarities by (``smooth``,
-``strictify``; ``consistency_rerank`` serves the hashed backend's sparse
-re-rank, not ported yet).
+``strictify``; ``consistency_rerank`` follows the hashed backend's sparse
+re-rank).
 """
 
 from __future__ import annotations

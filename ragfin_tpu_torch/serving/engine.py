@@ -1,6 +1,7 @@
 """The single retrieval engine behind every frontend.
 
-Port of ``ragfin_tpu/serving/engine.py``: chunks -> trained embedder ->
+Port of ``ragfin_tpu/serving/engine.py``: chunks -> embedder (the
+settings' backend: hashed, trained or minilm) ->
 :class:`DeviceVectorIndex` (or, with ``index_type="ivf"``, an
 :class:`IVFVectorIndex` over it) on the card -> ``VectorRAG``
 (FilteredSearch, conflict flags, extractive answers) -> ``QueryBatcher``;
@@ -114,10 +115,11 @@ class RagFinEngine:
             from ..index.ivf_index import IVFVectorIndex
 
             index = IVFVectorIndex.load(self.settings.index_dir, device=self.device)
-            # ivf.json records no trained embedder; queries are encoded with
-            # the one the settings name (the JAX engine leaves a loaded IVF
-            # index without a text encoder).
-            index.embedder = self._make_embedder()
+            if index.embedder is None and index.featurizer is None:
+                # ivf.json records only a hashed embedder: a trained or minilm
+                # index is encoded with the one the settings name (the JAX
+                # engine leaves such an index without a text encoder).
+                index.embedder = self._make_embedder()
             return index
         if self._saved("index.json"):
             return DeviceVectorIndex.load(self.settings.index_dir, device=self.device)
@@ -140,13 +142,18 @@ class RagFinEngine:
         return dense
 
     def _make_embedder(self):
+        """The settings' embedder; None for hashed, whose default
+        ``DeviceVectorIndex.build`` makes (fitted on the chunks)."""
+        backend = self.settings.embed_backend
+        if backend == "hashed":
+            return None
         from ..models.embedder import make_embedder
 
-        return make_embedder(
-            self.settings.embed_backend,
-            checkpoint=self.settings.trained_checkpoint,
-            device=self.device,
+        checkpoint = (
+            self.settings.trained_checkpoint if backend == "trained"
+            else self.settings.minilm_checkpoint
         )
+        return make_embedder(backend, checkpoint=checkpoint, device=self.device)
 
     def _load_graph(self) -> GraphIndex:
         graph_dir = os.path.join(self.settings.index_dir or "", "graph")

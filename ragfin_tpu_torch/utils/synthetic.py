@@ -1,9 +1,11 @@
-"""Seeded synthetic kernel inputs, made on the device.
+"""Seeded synthetic inputs.
 
 The corpora and queries that ``bench_torch.py``, ``scripts/kernel_probe_torch.py``
-and ``chip_smoke.py`` feed to the kernels: the distributions of ``bench.py``
-and ``scripts/kernel_probe.py`` (standard normal values rounded to bf16,
-unit-normalized columns for the top-k kernels).
+and ``chip_smoke.py`` feed to the kernels, made on the device: the
+distributions of ``bench.py`` and ``scripts/kernel_probe.py`` (standard
+normal values rounded to bf16, unit-normalized columns for the top-k
+kernels). And a WordPiece vocabulary in the HF layout for synthetic MiniLM
+checkpoints (nothing is downloaded).
 """
 
 from __future__ import annotations
@@ -31,3 +33,22 @@ def unit_queries(shape, seed: int = 1, device="cuda") -> torch.Tensor:
     gen = torch.Generator(device=device).manual_seed(seed)
     x = torch.randn(tuple(shape), generator=gen, device=device)
     return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+
+
+def wordpiece_vocab(words, size: int = 30522) -> list[str]:
+    """A ``vocab.txt`` token list of ``size`` entries in the BERT layout:
+    [PAD] at 0, [UNK] [CLS] [SEP] [MASK] at 100-103, then every letter and
+    digit alone and as a "##" continuation, then ``words`` (lowercased,
+    deduplicated), then filler."""
+    head = ["[PAD]"] + [f"[unused{i}]" for i in range(99)] + ["[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+    chars = [chr(c) for c in range(ord("a"), ord("z") + 1)] + [str(d) for d in range(10)]
+    tokens = head + chars + ["##" + c for c in chars]
+    seen = set(tokens)
+    for w in words:
+        w = w.lower()
+        if w not in seen:
+            seen.add(w)
+            tokens.append(w)
+    tokens = tokens[:size]
+    tokens += [f"[filler{i}]" for i in range(size - len(tokens))]
+    return tokens

@@ -4,11 +4,10 @@ subcommand, through ``main([...])`` on one generated ``extract_data`` tree.
 The port runs with ``RAGFIN_DEVICE=cpu``. Exit codes must be equal and the
 printed JSON equal after dropping latencies and the port's ``device`` entry;
 scores may differ by 2e-3 (the two bf16 encoder forwards, see
-``tests/test_torch_engine.py``). Two differences are deliberate and checked
-here: ``build-index`` in the port embeds with the settings' backend (the
-trained encoder) where the JAX command always takes the hashed one, so only
-the shape of its report is compared; ``train`` raises until training is
-ported.
+``tests/test_torch_engine.py``). ``build-index`` embeds with the hashed
+backend in both packages, so its whole report must be equal, and each
+package's saved index serves the other's ``query`` command. One difference is
+deliberate and checked here: ``train`` raises until training is ported.
 """
 
 import io
@@ -104,22 +103,25 @@ def test_build_index_reports_the_same_shape(tree, tmp_path, capsys, index_type):
     )
     assert rj == rt == 0
     j, t = json.loads(oj), json.loads(ot)
-    assert set(t) - set(j) <= {"device"} and set(j) <= set(t)
-    for key in ("chunks", "num_entities", "dim", "graph_facts", "periods", "chunk_types",
-                "index_type", "metric_type", "collection", "n_cells", "cell", "nprobe"):
-        assert (key in j) == (key in t), key
-        if key in j:
-            assert j[key] == t[key], key
-    assert t.get("device", "cpu") == "cpu" and t["chunks"] == 16 and t["graph_facts"] > 16
+    same(j, t)
+    assert set(t) - set(j) <= {"device"} and t.get("device", "cpu") == "cpu"
+    assert t["chunks"] == 16 and t["graph_facts"] > 16
     marker = "ivf.json" if index_type == "ivf" else "index.json"
     for side in ("j", "t"):
         assert (tmp_path / side / marker).exists() and (tmp_path / side / "graph" / "graph.json").exists()
-    # The port's saved index serves the port's query command.
-    capsys.readouterr()
-    rc = t_cli.main(["query", "What was ICICI Bank's net profit in Q1 FY2024?", "--mode", "vector",
-                     "--data", str(tree / "extract_data"), "--index", str(tmp_path / "t")])
-    out = json.loads(capsys.readouterr().out)
-    assert rc == 0 and out["contexts"][0]["id"] == "icici_q1_fy2024_profitability_analysis"
+        meta = json.load(open(tmp_path / side / marker))
+        assert meta["featurizer"]["n_docs"] == 16 and meta["encoder"]["tuned"] is False
+    # Each package's saved index serves both packages' query command alike.
+    question = "What was ICICI Bank's net profit in Q1 FY2024?"
+    for side in ("j", "t"):
+        (rqj, qj), (rqt, qt) = run_both(
+            capsys,
+            lambda s: ["query", question, "--mode", "vector", "--data", str(tree / "extract_data"),
+                       "--index", str(tmp_path / side)],
+        )
+        assert rqj == rqt == 0
+        same(json.loads(qj), json.loads(qt))
+        assert json.loads(qt)["contexts"][0]["id"] == "icici_q1_fy2024_profitability_analysis"
 
 
 @pytest.mark.parametrize("mode", ["vector", "graph", "hybrid"])

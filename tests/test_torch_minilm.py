@@ -97,10 +97,11 @@ def test_trained_embedder_matches_flax_embedder():
 
 
 def test_make_embedder_rejects_unported_backends():
+    """Every JAX backend is ported: only an unknown backend or keyword is
+    refused, as in the JAX factory."""
     from ragfin_tpu_torch.models.embedder import make_embedder
 
-    for backend in ("hashed", "minilm"):
-        with pytest.raises(NotImplementedError, match="Queue A item 6"):
-            make_embedder(backend)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="unknown embed backend"):
         make_embedder("bogus")
+    with pytest.raises(TypeError, match="unknown embedder kwargs"):
+        make_embedder("hashed", checkpoint_dir="x")
