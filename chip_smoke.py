@@ -85,6 +85,27 @@ Phases (any failure exits nonzero, and no phase carries on past one):
    embed_backend="minilm" over 131,072 generated filings, the card's bf16
    forward against the CPU f32 forward (per-row cosine >= 0.999 on 256
    chunks), six questions through the fused kernel.
+   Train (3e): (a) the bag encoder fine-tuned at the hashed backend's width
+   (table 65,536 x 384 f32; featurizer fitted on 131,072 generated filings,
+   512 of them gold filings of distinct scope cells, plus the 16 generated
+   ICICI chunks; 512 generated questions whose expected ids are the gold
+   filings'): finetune_and_evaluate with JAX's defaults (20 epochs, batch
+   16, lr 3e-3, temperature 0.1) as `cli train` runs it, the fused kernel's
+   counter at 0 just before (its launches are the two evaluations'); recall
+   must not fall and the loss must; the first epoch on the card against the
+   port on the CPU from the same init_table (loss within 1e-4 relative);
+   steps/s over 20 epochs and one step's device time and idle share
+   (torch.profiler). (b) The domain encoder warm-started from
+   checkpoints/domain_encoder (50 steps of 256 pairs, query 64 and document
+   192 tokens, chunks of 25) into the work directory: host seconds per chunk
+   apart from device seconds, ms per step, tokens/s, peak memory, first and
+   last chunk loss; the first step's loss (the parent on the first batch)
+   on the card against the CPU, bf16 both (DOMAIN_LOSS_TOL); the written
+   params.npz has the committed one's keys, shapes and f16; then an engine
+   from Settings(embed_backend="trained", trained_checkpoint=<it>) through
+   get_engine over the main path's 131,072 filings answers six unscoped
+   questions through the fused kernel, hits equal to the dense tier. The
+   phase writes only into the run's temporary work directory.
 4. First-k alone: hit [10,000,000] int8 at hit rates 1e-3, 1.0 and 0, with
    three hits in the last rows, hits in the last span only, one hit at 0,
    k = 1, k = the hit count, a bool ragged and an unaligned vector, k = 30
@@ -138,7 +159,8 @@ Phases (any failure exits nonzero, and no phase carries on past one):
    this process with the ceiling kernel's counter at 0 just before.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
-kernel table as JSON (rows 1-3 also carry the hashed phase's launches).
+kernel table as JSON (rows 1-3 also carry the hashed phase's launches, row 1 the
+minilm and train phases').
 """
 
 from __future__ import annotations
@@ -2218,6 +2240,305 @@ def minilm_phase(torch, topk, work_dir: str) -> dict:
     return {"launches": launches, "breakdown": breakdown, "cos": cos}
 
 
+# --- phase 3e: training ---------------------------------------------------------
+
+TRAIN_QUESTIONS = 512
+TRAIN_LOSS_RTOL = 1e-4  # the bag fine-tune's first epoch, card against CPU
+DOMAIN_STEPS, DOMAIN_BATCH, DOMAIN_CHUNK, DOMAIN_Q, DOMAIN_D = 50, 256, 25, 64, 192
+# The domain encoder's first-step loss, card bf16 against CPU bf16 (cuBLAS
+# and the CPU's GEMMs round bf16 products at other places): 1.19e-4 measured
+# on an H100 at batch 256.
+DOMAIN_LOSS_TOL = 1e-3
+TRAIN_TEMPLATES = {
+    "profitability_analysis": "What was {bank}'s net profit in {q} {fy}?",
+    "balance_sheet_analysis": "What were {bank}'s total customer deposits in {q} {fy}?",
+    "financial_ratios": "What was the basic EPS of {bank} for {q} {fy}?",
+    "segment_analysis": "How did {bank}'s treasury segment revenue do in {q} {fy}?",
+}
+
+
+def train_questions(n: int, seed: int):
+    """``n`` gold filings, each the only one of its (bank, quarter, fiscal
+    year, statement) cell: years 2004-2017, which the generated corpus
+    (2018-2031) never uses. One question per filing names its cell; its
+    expected chunk is the filing's own id."""
+    import numpy as np
+
+    from ragfin_tpu_torch.data.models import IndexedChunk
+    from ragfin_tpu_torch.eval.datasets import EvalQuestion
+    from ragfin_tpu_torch.eval.distractors import _TEMPLATES, BANKS
+
+    r = np.random.default_rng(seed)
+    cells = [(b, q, y, t) for b in BANKS for y in range(2004, 2018) for q in range(1, 5)
+             for t in range(len(_TEMPLATES))]
+    gold, qs = [], []
+    for i in r.choice(len(cells), n, replace=False):
+        bank, q, year, t = cells[int(i)]
+        ctype, fn, stype = _TEMPLATES[t]
+        period = f"Q{q}_FY{year}"
+        cid = f"gold_{len(gold):05d}_{bank.split()[0].lower()}_{period.lower()}_{ctype}"
+        gold.append(IndexedChunk(id=cid, text=fn(bank, period, r), period=period, chunk_type=ctype,
+                                 statement_type=stype, company=bank))
+        qs.append(EvalQuestion(id=f"t{len(qs)}", category=ctype.split("_")[0],
+                               question=TRAIN_TEMPLATES[ctype].format(bank=bank, q=f"Q{q}", fy=f"FY{year}"),
+                               expected_chunks=[cid]))
+    return gold, qs
+
+
+def step_profile(torch, label: str, step, state, batch, reps: int) -> tuple[float, float]:
+    """(device busy ms, host wall ms) per training step from torch.profiler.
+    Busy time is the union of the CUDA kernels' and copies' intervals: the
+    autograd and optimizer ranges on the host carry their kernels' device
+    time too, so summing key_averages() would count it twice. Prints the
+    kernels that take most of it (device ms per step)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    spans, by_name = [], {}
+    for ev in prof.events():
+        # user annotations (the optimizer's step range) span gaps as well
+        if ev.device_type == DeviceType.CUDA and not getattr(ev, "is_user_annotation", False):
+            spans.append((ev.time_range.start, ev.time_range.end))
+            name = ev.name
+            for noise in ("void ", "(anonymous namespace)::", "at::native::", "at_cuda_detail::"):
+                name = name.replace(noise, "")
+            name = name[:56]
+            by_name[name] = by_name.get(name, 0.0) + ev.time_range.elapsed_us() / 1e3 / reps
+    busy_us, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    busy_ms = busy_us / 1e3 / reps
+    if busy_ms <= 0:
+        raise AssertionError(f"{label}: the profiler saw no device time in a training step")
+    top = sorted(((ms, name) for name, ms in by_name.items()), reverse=True)[:6]
+    print(f"{label} step profile: {len(spans) / reps:.0f} device events per step; "
+          + ", ".join(f"{name} {ms:.3f} ms" for ms, name in top), flush=True)
+    return busy_ms, wall_ms
+
+
+def bag_train_check(torch, topk, dev, chunks, qs) -> dict:
+    """(a) The bag encoder fine-tuned at the hashed backend's width:
+    finetune_and_evaluate as cli train runs it, with the fused kernel's
+    counter at 0 just before; the first epoch on the card against the CPU;
+    steps/s and one step's device time."""
+    import numpy as np
+
+    from ragfin_tpu_torch.models import finetune
+    from ragfin_tpu_torch.models.bag_encoder import BagEncoder
+    from ragfin_tpu_torch.models.featurizer import HashedFeaturizer
+    from ragfin_tpu_torch.models.training import AdamW, bag_apply, init_train_state, make_train_step
+
+    kw = dict(batch_size=16, learning_rate=3e-3, temperature=0.1)  # JAX's defaults
+    t0 = time.perf_counter()
+    feat = HashedFeaturizer().fit([c.text for c in chunks])
+    fit_s = time.perf_counter() - t0
+    pairs = finetune.PairDataset.from_eval_questions(qs, chunks)
+    if len(pairs) != len(qs):
+        raise AssertionError(f"{len(pairs)} pairs from {len(qs)} questions")
+    card_loss, cpu_loss = (
+        finetune.finetune_bag_encoder(pairs, feat, BagEncoder(device=d), epochs=1, **kw)[1][0]["loss"]
+        for d in (dev, "cpu"))
+    rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    if rel > TRAIN_LOSS_RTOL or not np.isfinite(card_loss):
+        raise AssertionError(f"bag first epoch: card loss {card_loss} against CPU {cpu_loss}")
+    # steps/s over a whole default run (20 epochs) on the card
+    rng = np.random.default_rng(0)
+    steps = sum(len(b) >= 2 for _ in range(20) for b in finetune.epoch_batches(pairs, 16, rng))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    finetune.finetune_bag_encoder(pairs, feat, BagEncoder(device=dev), epochs=20, **kw)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    # one step's device time and idle share
+    q_ids, q_w = feat.encode_batch(pairs.queries[:16])
+    d_ids, d_w = feat.encode_batch(pairs.documents[:16])
+    batch = {side: {"ids": torch.from_numpy(i.astype(np.int64)).to(dev),
+                    "weights": torch.from_numpy(w.astype(np.float32)).to(dev)}
+             for side, i, w in (("query", q_ids, q_w), ("doc", d_ids, d_w))}
+    opt = AdamW(3e-3)
+    state = init_train_state(BagEncoder(device=dev).table, opt)
+    busy_ms, wall_ms = step_profile(torch, "train bag", make_train_step(bag_apply, opt, 0.1), state, batch, 20)
+
+    # ---- the driven run: counters 0 just before, read just after ----------
+    topk.cosine_topk_fused.launches = 0
+    t0 = time.perf_counter()
+    out = finetune.finetune_and_evaluate(chunks, qs, k=3, device=dev, epochs=20, **kw)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = topk.cosine_topk_fused.launches
+    # -------------------------------------------------------------------------
+    hist = out["history"]
+    if launches < 2 or out["pairs"] != len(qs):
+        raise AssertionError(f"bag fine-tune: {launches} fused launches, {out['pairs']} pairs")
+    if not (out["after"]["recall"] >= out["before"]["recall"] and hist[-1]["loss"] < hist[0]["loss"]):
+        raise AssertionError(f"bag fine-tune did not improve: {out['before']} -> {out['after']}, "
+                             f"loss {hist[0]['loss']} -> {hist[-1]['loss']}")
+    print(f"train bag: {len(chunks)} chunks, {len(qs)} questions, table 65536 x {D} f32; featurizer "
+          f"fit {fit_s:.1f} s; first epoch loss card {card_loss:.7f}, CPU {cpu_loss:.7f} "
+          f"(rel {rel:.2e}, limit {TRAIN_LOSS_RTOL:g}); 20 epochs = {steps} steps in {run_s:.2f} s = "
+          f"{steps / run_s:.1f} steps/s; one step device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms "
+          f"wall, idle share {1 - busy_ms / wall_ms:.1%}; finetune_and_evaluate {total_s:.1f} s: "
+          f"recall {out['before']['recall']:.4f} -> {out['after']['recall']:.4f}, F1 "
+          f"{out['before']['f1']:.4f} -> {out['after']['f1']:.4f}, loss {hist[0]['loss']:.4f} -> "
+          f"{hist[-1]['loss']:.4f}; fused launches in the two evals {launches}; {CARD}", flush=True)
+    return {"launches": launches, "steps_per_s": steps / run_s, "step_busy_ms": busy_ms,
+            "step_wall_ms": wall_ms, "before": out["before"], "after": out["after"],
+            "loss_rel_err": rel}
+
+
+def domain_train_check(torch, topk, dev, here: str, work_dir: str) -> dict:
+    """(b) The domain encoder warm-started from the committed checkpoint at
+    full width, the first step's loss against the CPU, the saved checkpoint
+    against the committed one, then served over the main path's filings."""
+    import numpy as np
+
+    from ragfin_tpu_torch.config.settings import Settings
+    from ragfin_tpu_torch.eval.distractors import generate_distractors
+    from ragfin_tpu_torch.models import domain_encoder, minilm, pairgen
+    from ragfin_tpu_torch.models.embedder import TrainedEmbedder
+    from ragfin_tpu_torch.models.minilm import minilm_apply
+    from ragfin_tpu_torch.models.training import AdamW, info_nce_loss, init_train_state, make_train_step
+    from ragfin_tpu_torch.serving.engine import get_engine, reset_engine
+
+    parent = os.path.join(here, "checkpoints", "domain_encoder")
+    ckpt = os.path.join(work_dir, "domain_encoder")
+    lines: list[str] = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # left by earlier phases
+    t0 = time.perf_counter()
+    res = domain_encoder.train_domain_encoder(
+        steps=DOMAIN_STEPS, batch_size=DOMAIN_BATCH, query_len=DOMAIN_Q, doc_len=DOMAIN_D,
+        scan_chunk=DOMAIN_CHUNK, init_from=parent, ckpt_dir=ckpt, device=dev, log=lines.append,
+    )
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    hist = res["history"]
+    dev_s = sum(h["chunk_s"] for h in hist)
+    tokens = DOMAIN_STEPS * DOMAIN_BATCH * (DOMAIN_Q + DOMAIN_D)
+    if len(hist) != -(-DOMAIN_STEPS // DOMAIN_CHUNK) or not all(np.isfinite(h["loss"]) for h in hist):
+        raise AssertionError(f"domain training history {hist}")
+
+    # The first step's loss (the parent's parameters on the first batch) on
+    # the card against the CPU, bf16 activations both.
+    flax_params, tok, config, _ = domain_encoder.load_encoder_checkpoint(parent)
+    rng = np.random.default_rng(0)  # the trainer's seed: its first batch
+    queries, docs = pairgen.pair_batch(rng, DOMAIN_BATCH)
+    sides = {}
+    for side, texts, length in (("query", queries, DOMAIN_Q), ("doc", docs, DOMAIN_D)):
+        ids, mask = domain_encoder._fixed_len(*tok.encode_batch(texts), length)
+        sides[side] = {"input_ids": torch.from_numpy(ids.astype(np.int64)),
+                       "attention_mask": torch.from_numpy(mask.astype(np.int64))}
+    first = []
+    for d in (dev, torch.device("cpu")):
+        model = minilm.MiniLMEncoder(config)
+        model.load_state_dict(minilm.params_from_flax(flax_params))
+        model.to(d)
+        batch = {s: {k: v.to(d) for k, v in side.items()} for s, side in sides.items()}
+        with torch.inference_mode():
+            loss = info_nce_loss(minilm_apply(model, batch["query"]), minilm_apply(model, batch["doc"]), 0.05)
+        first.append(float(loss))
+    gap = abs(first[0] - first[1])
+    if gap > DOMAIN_LOSS_TOL or not np.isfinite(first[0]):
+        raise AssertionError(f"domain first-step loss: card {first[0]} against CPU {first[1]}")
+
+    # One step's device time and idle share, on the card, from the parent.
+    model = minilm.MiniLMEncoder(config)
+    model.load_state_dict(minilm.params_from_flax(flax_params))
+    model.to(dev).train()
+    opt = AdamW(3e-4, weight_decay=0.01, max_grad_norm=1.0)
+    batch = {s: {k: v.to(dev) for k, v in side.items()} for s, side in sides.items()}
+    busy_ms, wall_ms = step_profile(torch, "train domain encoder", make_train_step(minilm_apply, opt, 0.05),
+                                    init_train_state(model, opt), batch, 3)
+    del model
+
+    # The checkpoint written must match the committed one's layout.
+    with np.load(os.path.join(parent, "params.npz")) as a, np.load(os.path.join(ckpt, "params.npz")) as b:
+        if sorted(a.files) != sorted(b.files) or any(
+                b[k].shape != a[k].shape or b[k].dtype != np.float16 for k in a.files):
+            raise AssertionError("the trained params.npz differs in keys, shapes or dtype")
+    print(f"train domain encoder: warm start from checkpoints/domain_encoder, {DOMAIN_STEPS} steps of "
+          f"{DOMAIN_BATCH} pairs (q {DOMAIN_Q}, d {DOMAIN_D} tokens) in {wall_s:.1f} s; host batches "
+          f"{', '.join(f'{s:.2f}' for s in res['host_s'])} s per chunk of {DOMAIN_CHUNK}; device "
+          f"{', '.join(str(h['chunk_s']) for h in hist)} s per chunk = "
+          f"{dev_s / DOMAIN_STEPS * 1e3:.1f} ms per step, {DOMAIN_STEPS / dev_s:.1f} steps/s, "
+          f"{tokens / dev_s:,.0f} tokens/s; one step (profiler) device busy {busy_ms:.2f} ms of "
+          f"{wall_ms:.2f} ms wall, idle {1 - busy_ms / wall_ms:.1%}; peak memory "
+          f"{peak / 2**30:.2f} GiB ({(peak - held) / 2**30:.2f} GiB above what was held before); loss first chunk {hist[0]['loss']:.4f} (mean "
+          f"{hist[0]['loss_mean']:.4f}), last chunk {hist[-1]['loss']:.4f} (mean "
+          f"{hist[-1]['loss_mean']:.4f}); first-step loss card {first[0]:.6f}, CPU "
+          f"{first[1]:.6f} (gap {gap:.2e}, limit {DOMAIN_LOSS_TOL:g}); params.npz keys, shapes "
+          f"and f16 as committed; {CARD}", flush=True)
+
+    # Served: the trained checkpoint behind the engine, over the main path's
+    # filings, through get_engine.
+    pool = generate_distractors(int(N_MAIN * 1.16), seed=SEED)
+    chunks = [c for c in pool if c.company != "ICICI Bank"][:N_MAIN]
+    reset_engine()
+    t0 = time.perf_counter()
+    engine = get_engine(settings=Settings(embed_backend="trained", trained_checkpoint=ckpt, index_dir=""),
+                        chunks=chunks)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    index = engine.vector_index
+    if (not isinstance(index.embedder, TrainedEmbedder) or index.embedder.checkpoint != ckpt
+            or index.n != len(chunks) or not index.matrix_t.is_cuda):
+        raise AssertionError(f"unexpected trained engine {index.stats()}")
+    engine.warmup()
+    _, unscoped = questions(chunks)
+    asked = unscoped[:6]
+    rag = engine.vector_rag
+    rag.search(asked[0], top_k=3)
+    torch.cuda.synchronize()
+    # ---- the driven run: counters 0 just before, read just after ----------
+    topk.cosine_topk_fused.launches = 0
+    served = {q: rag.search(q, top_k=3) for q in asked}
+    torch.cuda.synchronize()
+    launches = topk.cosine_topk_fused.launches
+    # -------------------------------------------------------------------------
+    if launches < len(asked) or not all(served.values()):
+        raise AssertionError(f"{len(asked)} requests on the trained checkpoint made {launches} launches")
+    searcher = rag._searcher
+    bad = [q for q in asked
+           if not hits_agree([h.to_dict(False) for h in searcher.search_texts([q], top_k=3, method="dense")[0]],
+                             served[q], BATCH_TOL)]
+    if bad:
+        raise AssertionError(f"trained-checkpoint hits differ from the dense tier for {bad}")
+    print(f"train served: engine on the trained checkpoint over {len(chunks)} chunks built in "
+          f"{build_s:.1f} s; {len(asked)} requests, fused launches {launches}, hits equal to the "
+          f"dense tier", flush=True)
+    reset_engine()
+    return {"launches": launches, "step_ms": dev_s / DOMAIN_STEPS * 1e3, "tokens_per_s": tokens / dev_s,
+            "peak_bytes": peak - held, "first_step_gap": gap, "step_busy_ms": busy_ms}
+
+
+def train_phase(torch, topk, here: str, work_dir: str) -> dict:
+    """Training on the card: (a) the bag encoder's fine-tune and (b) the
+    domain encoder's warm start, each checked against the CPU."""
+    from ragfin_tpu_torch.data.loader import build_corpus
+    from ragfin_tpu_torch.eval.distractors import generate_distractors
+    from ragfin_tpu_torch.eval.statements import write_extract_data
+    from ragfin_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(None)
+    gold, qs = train_questions(TRAIN_QUESTIONS, SEED + 5)
+    icici = build_corpus(write_extract_data(os.path.join(work_dir, "train_data"), seed=44))
+    chunks = generate_distractors(N_MAIN - len(gold), seed=SEED + 5) + gold + icici
+    bag = bag_train_check(torch, topk, dev, chunks, qs)
+    domain = domain_train_check(torch, topk, dev, here, work_dir)
+    return {"launches": bag["launches"] + domain["launches"], "bag": bag, "domain": domain}
+
+
 # --- phase 8: the services over HTTP -----------------------------------------
 
 
@@ -2496,7 +2817,11 @@ def cli_phase(torch, work_dir: str, here: str) -> dict:
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap = argparse.ArgumentParser(
+        description=__doc__.splitlines()[0],
+        epilog="With no option: every phase, the train phase (3e) included: the bag encoder's "
+               "fine-tune and the domain encoder's warm start on the card, each against the "
+               "CPU, then the trained checkpoint served. --kernels and --graph skip it.")
     ap.add_argument("--kernels", action="store_true",
                     help="build, check and time the kernels alone (phases 1, 2, 4, 6 and 7)")
     ap.add_argument("--graph", action="store_true",
@@ -2550,6 +2875,7 @@ def main() -> int:
         integrity_phase(torch, work_dir)
         hashed = hashed_phase(torch, topk, work_dir)
         minilm_run = minilm_phase(torch, topk, work_dir)
+        train = train_phase(torch, topk, here, work_dir)
         served = served_phase(torch, topk, graph_index, work_dir)
         cli_run = cli_phase(torch, work_dir, here)
     print(f"request p50: over the wire {served['wire_p50_ms']:.2f} ms, in process "
@@ -2617,8 +2943,9 @@ def main() -> int:
         "cases": merge["cases"],
     })
     table[0]["minilm_launches"] = minilm_run["launches"]
+    table[0]["train_launches"] = train["launches"]
     for row in table:
-        if row["launches"] < 1 or row.get("hashed_launches", 1) < 1:
+        if row["launches"] < 1 or row.get("hashed_launches", 1) < 1 or row.get("train_launches", 1) < 1:
             return fail(f"kernel {row['name']} was launched no time on its path")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

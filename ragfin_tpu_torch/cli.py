@@ -1,4 +1,4 @@
-"""Command-line interface: build, query, evaluate, serve, extract.
+"""Command-line interface: build, query, evaluate, serve, extract, train.
 
 Replaces the reference's script-per-task workflow (``chunking_storing``
 module script, ``retrieve.py`` interactive main, ``graphretrieve.py`` smoke
@@ -10,14 +10,17 @@ runs, ``multi_bank_extractor`` batch loop) with one CLI:
     python -m ragfin_tpu_torch.cli eval         --path qa.json --k 10 --summary out.json
     python -m ragfin_tpu_torch.cli extract-pdf  path/to/report.pdf
     python -m ragfin_tpu_torch.cli serve        --model fake
+    python -m ragfin_tpu_torch.cli train        --data extract_data --qa qa.json --epochs 30
     python -m ragfin_tpu_torch.cli bench        --n 1000000
 
 Counterpart of ``ragfin_tpu/cli.py`` with the same subcommands, flags and
 defaults. Everything that touches an index runs on the CUDA card and raises
 without one; ``RAGFIN_DEVICE=cpu`` asks for the CPU (the counterpart of
 pinning ``JAX_PLATFORMS``). ``build-index`` embeds with the hashed backend,
-as the JAX command does; ``train`` is parsed and raises until training is
-ported.
+as the JAX command does; ``train`` fine-tunes its projection table on a
+labeled QA file and prints recall and F1 before and after. ``eval`` and
+``train`` need their QA file named (``--path``, ``--qa``): the JAX CLI's
+defaults point into the reference repository.
 """
 
 from __future__ import annotations
@@ -179,10 +182,24 @@ def cmd_serve(args) -> int:
 
 
 def cmd_train(args) -> int:
-    raise NotImplementedError(
-        "training is not ported yet (ROADMAP Slice 5: models/training.py, "
-        "models/finetune.py and the hashed backend they train)"
+    from .config.settings import get_config
+    from .data.loader import build_corpus
+    from .eval.datasets import load_qa_subset
+    from .models.finetune import finetune_and_evaluate
+    from .utils.device import resolve_device
+
+    if not args.qa:
+        print("error: train needs --qa (a labeled QA file)", file=sys.stderr)
+        return 2
+    device = resolve_device(get_config().device)
+    chunks = build_corpus(args.data)
+    questions = load_qa_subset(args.qa)
+    out = finetune_and_evaluate(
+        chunks, questions, k=args.k, epochs=args.epochs, checkpoint_dir=args.checkpoint_dir,
+        device=device,
     )
+    print(json.dumps({k: v for k, v in out.items() if k != "history"}, indent=2))
+    return 0
 
 
 def cmd_bench(args) -> int:

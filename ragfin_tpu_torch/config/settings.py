@@ -1,11 +1,9 @@
 """Environment-driven configuration of the port.
 
-Counterpart of ``ragfin_tpu/config/settings.py``, cut to the fields the
-ported paths (corpus loading, vector, graph and hybrid retrieval, flat and
-IVF index, the services) read. The environment variables and defaults are
-the JAX package's, so one ``.env`` configures both packages alike. One field
-is the port's own: ``device`` (``RAGFIN_DEVICE``, the counterpart of pinning
-``JAX_PLATFORMS``).
+Counterpart of ``ragfin_tpu/config/settings.py``, with the same fields,
+environment variables and defaults, so one ``.env`` configures both packages
+alike. One field is the port's own: ``device`` (``RAGFIN_DEVICE``, the
+counterpart of pinning ``JAX_PLATFORMS``).
 """
 
 from __future__ import annotations
@@ -61,9 +59,11 @@ class Settings:
     device: Optional[str] = None
 
     default_top_k: int = 3
+    collection_name: str = "fin_chunks"
     embed_backend: str = field(default_factory=lambda: _default_backend())
     minilm_checkpoint: Optional[str] = None  # a local HF checkpoint directory
     trained_checkpoint: Optional[str] = None  # None -> packaged default dir
+    topk_method: str = "auto"  # "auto" | "dense" | "blocked" | "fused"
     # "float32" (exact f32 scoring) | "bfloat16" | "int8" (per-column scales)
     index_dtype: str = "float32"
     # "flat" = exact search; "ivf" = the reference's index type
@@ -75,6 +75,9 @@ class Settings:
     ports: dict = field(default_factory=lambda: dict(PORTS))
     batch_queries: bool = True  # dynamic micro-batching on the query path
 
+    # Timeouts
+    base_timeout_s: float = 30.0
+
     def get_api_key_for_model(self, model_name: str) -> Optional[str]:
         """Per-provider key lookup."""
         if "gemini" in model_name:
@@ -84,6 +87,12 @@ class Settings:
         if "llama" in model_name or "groq" in model_name:
             return self.groq_api_key
         return None
+
+    def get_timeout_for_model(self, model_name: str) -> float:
+        """Model-dependent timeouts: 2x for local llama."""
+        if "llama" in model_name and not self.groq_api_key:
+            return self.base_timeout_s * 2
+        return self.base_timeout_s
 
     def validate(self) -> list[str]:
         """Configuration issues as warnings, like the JAX package's."""
@@ -141,10 +150,12 @@ def _from_env() -> Settings:
         embed_backend=env.get("RAGFIN_EMBED_BACKEND", _default_backend()),
         minilm_checkpoint=env.get("RAGFIN_MINILM_CHECKPOINT"),
         trained_checkpoint=env.get("RAGFIN_TRAINED_CHECKPOINT"),
+        topk_method=env.get("RAGFIN_TOPK_METHOD", "auto"),
         index_dtype=env.get("RAGFIN_INDEX_DTYPE", "float32"),
         index_type=env.get("RAGFIN_INDEX_TYPE", "flat"),
         ivf_nprobe=int(env.get("RAGFIN_IVF_NPROBE", "32")),
         integrity_weight=float(env.get("RAGFIN_INTEGRITY_WEIGHT", "0")),
+        base_timeout_s=float(env.get("RAGFIN_TIMEOUT_S", "30")),
         batch_queries=env.get("RAGFIN_BATCH_QUERIES", "1") not in ("0", "false", "no"),
     )
 

@@ -1,8 +1,9 @@
 """The port stands alone: ``ragfin_tpu_torch``, ``chip_smoke.py``,
-``bench_torch.py``, ``scripts/kernel_probe_torch.py`` and
-``scripts/mosaic_bisect_torch.py`` import neither JAX
-nor anything of the JAX package, and the port's entry points refuse to run on
-the CPU unless the caller asks for it."""
+``bench_torch.py``, ``scripts/kernel_probe_torch.py``,
+``scripts/mosaic_bisect_torch.py`` and ``scripts/train_encoder_torch.py``
+import neither JAX (nor flax, optax or orbax, which import it) nor anything
+of the JAX package, and the port's entry points refuse to run on the CPU
+unless the caller asks for it."""
 
 import ast
 import os
@@ -14,7 +15,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "ragfin_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ragfin_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "ragfin_tpu")
 
 
 def _port_files():
@@ -23,6 +24,7 @@ def _port_files():
         os.path.join(ROOT, "bench_torch.py"),
         os.path.join(ROOT, "scripts", "kernel_probe_torch.py"),
         os.path.join(ROOT, "scripts", "mosaic_bisect_torch.py"),
+        os.path.join(ROOT, "scripts", "train_encoder_torch.py"),
     ]
     for dirpath, _, names in os.walk(PKG):
         out += [os.path.join(dirpath, n) for n in sorted(names) if n.endswith(".py")]
@@ -173,7 +175,8 @@ def test_cli_query_refuses_without_card_unless_cpu_is_asked_for(tmp_path):
     assert json.loads(out.stdout)["contexts"][0]["id"] == "icici_q1_fy2024_profitability_analysis"
 
 
-@pytest.mark.parametrize("script", ["bench_torch.py", os.path.join("scripts", "kernel_probe_torch.py")])
+@pytest.mark.parametrize("script", ["bench_torch.py", os.path.join("scripts", "kernel_probe_torch.py"),
+                                    os.path.join("scripts", "train_encoder_torch.py")])
 def test_bench_scripts_say_so_without_a_card(script):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
