@@ -5,6 +5,7 @@
     python3 chip_smoke.py --kernels  # phases 1, 2, 4, 6 and 7 only (build, kernels alone)
     python3 chip_smoke.py --graph    # phases 1, 4 and 5 only (build, first-k, graph store)
     python3 chip_smoke.py --sweep    # also the IVF and int8 grid-rule and first-k span sweeps
+    python3 chip_smoke.py --parallel # phases 1 and 10 only (build, the parallel layer)
 
 Phases (any failure exits nonzero, and no phase carries on past one):
 
@@ -63,7 +64,7 @@ Phases (any failure exits nonzero, and no phase carries on past one):
    1e-5), and every tampered copy that fails a check must rank below its
    source where the source passes all of its checks.
    Hashed (3c): the hashed backend (native featurizer on the host, bag
-   encoder on the card) over 1,048,576 generated filings plus the generated
+   encoder on the card) over 524,288 generated filings plus the generated
    statements' 16 ICICI chunks, engine from Settings(embed_backend="hashed")
    through get_engine: the native featurizer must be loaded; 4,096 sampled
    rows bag-encoded on the card within 2e-6 of the plain CPU encode, and rows
@@ -158,9 +159,38 @@ Phases (any failure exits nonzero, and no phase carries on past one):
    the bench subcommand (bench_torch.py, BENCH_N = 1,000,000, BENCH_Q = 64) in
    this process with the ceiling kernel's counter at 0 just before.
 
+10. Parallel (ragfin_tpu_torch/parallel), after phase 3's main path, on
+   meshes that list cuda:0 as often as they have shards, with the kernels'
+   counters at 0 just before (a) and read after (d): (a) ShardedVectorIndex.
+   from_dense over the main path's f32 and int8 indexes (131,072 filings),
+   1 and 2 shards (65,536 columns a shard: the fused kernels), its questions
+   through search_texts: f32 hits equal to the flat index's (1e-5), int8
+   bitwise equal to the same program with fused_topk_int8_plain in the
+   kernel's place; (b) 4,000,037 seeded unit vectors, f32 and int8, 1 and 4
+   shards, Q in {1, 64}, k = 64: f32 ids against an f64 oracle outside tie
+   bands, int8 bitwise against the plain-version program, each call timed
+   beside the direct fused call; a negative-similarity corpus with 98 %
+   padding over 8 shards (method="fused"), and both kernels on a pure-pad
+   shard (limit 0) returning empty lists; (c) phase 5's 10M-fact store over
+   1 and 4 shards: nine matches (test_sharded_graph.py's cases and company
+   scopes), rows and hit counts equal to GraphIndex.match and a numpy count,
+   two first-k launches a shard per match; (d) phase 6's IVF (489 cells
+   padded to 492) over 4 shards, Q = 64, k 64: at full probe f32 equal to the
+   exact fused tier and int8 to its dequantized cells, recall@10 at nprobe 32
+   beside the pruned kernel's, timed beside it; (e) build_ivf on phase 6's
+   corpus with free_source off and on: equal indexes, the peak (above the
+   caller's memory) lower by at least the source's bytes; (f) the committed
+   domain encoder on 64 of the main path's chunks at 192 tokens, pp = 2 (M =
+   4) and sp = 4 against the single-device forward (bf16 cosine >= 0.999, f32
+   within 1e-5), one pp train step's loss against a replay (1e-5) with every
+   layer updated, and the residual-MLP pipeline (L = 8, d = 384, M = 8, B =
+   64, pp 2 and 4) against sequential_forward; (g) case (b) again through a
+   one-rank NCCL process group, equal to the in-process results; (h)
+   dryrun_multichip(4).
+
 The last line is {"ok": true, "device": {...}}; the line before it is the
 kernel table as JSON (rows 1-3 also carry the hashed phase's launches, row 1 the
-minilm and train phases').
+minilm and train phases', rows 1, 2 and first_k the parallel phase's).
 """
 
 from __future__ import annotations
@@ -998,10 +1028,10 @@ def first_k_span_sweep(torch, graph_index, cases, timed, check) -> dict:
 # --- phase 5: graph store at scale -------------------------------------------
 
 
-def graph_scale_phase(torch, graph_index) -> None:
+def scale_graph(graph_index):
+    """The 10,000,000-fact store of phase 5 (seeded), packed on the card."""
     import numpy as np
 
-    t0 = time.perf_counter()
     g = graph_index.GraphIndex()
     rng = np.random.default_rng(SEED)
     n = N_GRAPH
@@ -1024,6 +1054,16 @@ def graph_scale_phase(torch, graph_index) -> None:
         values=np.array([1.0, 2.0, 3.0, 777.0, 4.0], np.float32),
         dataset_id="rare", company="Rare Bank",
     )
+    g._pack()
+    return g
+
+
+def graph_scale_phase(torch, graph_index):
+    import numpy as np
+
+    t0 = time.perf_counter()
+    g = scale_graph(graph_index)
+    n = N_GRAPH
     packed = g._pack()
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
@@ -1094,6 +1134,7 @@ def graph_scale_phase(torch, graph_index) -> None:
                       lambda: g.match(names=["Metric 7"], types=[graph_index.SEGMENT]))
     profile_breakdown(torch, "graph expand(hops=2) 10M", 1, lambda: g.expand(["Rare A"], hops=2))
     graph_index.masked_first_k.launches = 0
+    return g
 
 
 # --- phase 6: IVF alone --------------------------------------------------------
@@ -1109,9 +1150,10 @@ def ivf_bound(qp: int, nprobe: int, cell: int, corpus: str, ops_type: str) -> tu
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def ivf_phase(torch, topk, ivf, sweep: bool = False) -> dict:
-    import numpy as np
-
+def ivf_inputs(torch, ivf):
+    """Phase 6's inputs: ``(ct32 [D, N] f32, q_all [64, D], idx32, idx8,
+    build seconds)``, the f32 index clustered on the card and an int8 index
+    over the same cells."""
     from ragfin_tpu_torch.ops.quantize import quantize_corpus_t
 
     dev = torch.device("cuda")
@@ -1133,6 +1175,20 @@ def ivf_phase(torch, topk, ivf, sweep: bool = False) -> dict:
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     n_cells = idx32.n_cells
+    flat = idx32.cells.permute(1, 0, 2).reshape(D, -1)
+    c8, sc8 = quantize_corpus_t(flat)
+    tiles = lambda t, rows: t.reshape(rows, n_cells, IVF_CELL).permute(1, 0, 2).contiguous()
+    idx8 = idx32._replace(cells=tiles(c8, D), scales=tiles(sc8, 1))
+    return ct32, q_all, idx32, idx8, build_s
+
+
+def ivf_phase(torch, topk, ivf, sweep: bool = False) -> dict:
+    import numpy as np
+
+    dev = torch.device("cuda")
+    n = N_KERNEL
+    ct32, q_all, idx32, idx8, build_s = ivf_inputs(torch, ivf)
+    n_cells = idx32.n_cells
     ids = idx32.orig_ids.cpu().numpy()
     if (idx32.n_valid != n or n_cells != -(-n // IVF_CELL) or (ids[:n] == topk.INT32_MAX).any()
             or not (ids[n:] == topk.INT32_MAX).all()
@@ -1140,12 +1196,7 @@ def ivf_phase(torch, topk, ivf, sweep: bool = False) -> dict:
         raise AssertionError("build_ivf: cells are not a balanced permutation with pads last")
     print(f"IVF build: N={n} D={D} cell={IVF_CELL} -> {n_cells} cells, 4 Lloyd iterations, "
           f"{build_s:.1f} s (device scoring and the host assignment)", flush=True)
-    flat = idx32.cells.permute(1, 0, 2).reshape(D, -1)
-    c8, sc8 = quantize_corpus_t(flat)
-    tiles = lambda t, rows: t.reshape(rows, n_cells, IVF_CELL).permute(1, 0, 2).contiguous()
     idx16 = idx32._replace(cells=idx32.cells.to(torch.bfloat16))
-    idx8 = idx32._replace(cells=tiles(c8, D), scales=tiles(sc8, 1))
-    del flat, c8, sc8
 
     ivf_row_major = int_mm_row_major(torch, dev)
     tiers = (("f32 exact", idx32, "exact", "float32", "tf32x3"),
@@ -1253,7 +1304,8 @@ def ivf_phase(torch, topk, ivf, sweep: bool = False) -> dict:
                       lambda: ivf.pruned_topk(qin, qs, idx32.cells, None, probe, n, IVF_K, IVF_BLOCK_Q))
     ivf.pruned_topk.launches = 0
     topk.cosine_topk_fused.launches = 0
-    return {"rows": rows, "max_abs_err": max_err, "n": n, "n_cells": n_cells}
+    return {"rows": rows, "max_abs_err": max_err, "n": n, "n_cells": n_cells,
+            "inputs": (ct32, q_all, idx32, idx8)}
 
 
 # --- phase 3 -------------------------------------------------------------
@@ -1483,24 +1535,48 @@ def ivf_engine_phase(torch, topk, flat_engine, chunks, unscoped, scoped) -> tupl
     return launches, err
 
 
+def main_chunks():
+    """The main path's 131,072 generated filings (seven banks, seed 0)."""
+    from ragfin_tpu_torch.eval.distractors import generate_distractors
+
+    pool = generate_distractors(int(N_MAIN * 1.16), seed=SEED)
+    chunks = [c for c in pool if c.company != "ICICI Bank"][:N_MAIN]
+    if len(chunks) != N_MAIN:
+        raise AssertionError(f"generated {len(chunks)} chunks, wanted {N_MAIN}")
+    return chunks
+
+
+def main_engine(chunks):
+    """The main path's engine: the trained encoder, an f32 flat index."""
+    from ragfin_tpu_torch.config.settings import Settings
+    from ragfin_tpu_torch.serving.engine import RagFinEngine
+
+    settings = Settings(embed_backend="trained", index_dtype="float32", batch_queries=True)
+    return RagFinEngine(settings=settings, chunks=chunks)
+
+
+def int8_index(index, chunks):
+    """An int8 index over the f32 index's embeddings (the main path's)."""
+    from ragfin_tpu_torch.index.vector_index import DeviceVectorIndex
+
+    emb_rows = index.matrix_t[:, : index.n].T.contiguous()
+    idx8 = DeviceVectorIndex(emb_rows, chunks, dtype="int8", normalize=False)
+    idx8.embedder = index.embedder
+    return idx8
+
+
 def main_path_phase(torch, topk) -> dict:
     import numpy as np
 
     from ragfin_tpu_torch.config.settings import Settings
-    from ragfin_tpu_torch.eval.distractors import generate_distractors
-    from ragfin_tpu_torch.index.vector_index import DeviceVectorIndex
     from ragfin_tpu_torch.serving.engine import RagFinEngine
 
     n_main = N_MAIN
     t0 = time.perf_counter()
-    pool = generate_distractors(int(n_main * 1.16), seed=SEED)
-    chunks = [c for c in pool if c.company != "ICICI Bank"][:n_main]
-    if len(chunks) != n_main:
-        raise AssertionError(f"generated {len(chunks)} chunks, wanted {n_main}")
+    chunks = main_chunks()
     gen_s = time.perf_counter() - t0
-    settings = Settings(embed_backend="trained", index_dtype="float32", batch_queries=True)
     t0 = time.perf_counter()
-    engine = RagFinEngine(settings=settings, chunks=chunks)
+    engine = main_engine(chunks)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     index = engine.vector_index
@@ -1612,9 +1688,7 @@ def main_path_phase(torch, topk) -> dict:
     ivf_launches, ivf_err = ivf_engine_phase(torch, topk, engine, chunks, unscoped, scoped)
 
     # ---- int8 index over the same embeddings ---------------------------
-    emb_rows = index.matrix_t[:, : index.n].T.contiguous()
-    idx8 = DeviceVectorIndex(emb_rows, chunks, dtype="int8", normalize=False)
-    idx8.embedder = index.embedder
+    idx8 = int8_index(index, chunks)
     engine8 = RagFinEngine(settings=Settings(embed_backend="trained", index_dtype="int8"),
                            vector_index=idx8)
     request_set = unscoped + scoped[:4]
@@ -1639,7 +1713,7 @@ def main_path_phase(torch, topk) -> dict:
     launches["first_k"] = hybrid_launches["first_k"]
     launches["ivf_topk"] = ivf_launches
     return {"launches": launches, "p50_ms": p50, "p50_alone_ms": p50_alone,
-            "ivf_engine_err": ivf_err}
+            "ivf_engine_err": ivf_err, "inputs": (index, idx8, scoped + unscoped)}
 
 
 # --- phase 3b: integrity-weighted retrieval -----------------------------------
@@ -1779,7 +1853,7 @@ def integrity_phase(torch, work_dir: str) -> dict:
 
 # --- phase 3c: the hashed backend at 1M chunks -------------------------------
 
-N_HASHED = 1_048_576
+N_HASHED = 524_288  # cut from 1,048,576 to keep the run within half its limit
 HASHED_SAMPLE = 4096
 HASHED_ORACLE_Q = 64
 # The card's bag encode against the port's plain CPU encode (f32 sums in
@@ -1813,7 +1887,7 @@ def equal_multiset_groups(featurizer, texts, batch: int = 1024) -> list[list[int
 
 def hashed_phase(torch, topk, work_dir: str) -> dict:
     """The hashed backend (featurizer on the host, bag encoder on the card)
-    at 1,048,576 generated filings plus the 16 generated ICICI statements:
+    at 524,288 generated filings plus the 16 generated ICICI statements:
     f32, int8 and IVF indexes through the engine, every check failing the
     run."""
     import numpy as np
@@ -2816,6 +2890,462 @@ def cli_phase(torch, work_dir: str, here: str) -> dict:
     return {"launches": launches, "bench": result, "stages": stages}
 
 
+# --- phase 10: the parallel layer ----------------------------------------------
+
+N_SCALE = 4_000_037  # not a multiple of any tile
+PAR_K = 64
+# tests/test_sharded_graph.py's MATCH_CASES (types 0 = METRIC, 2 = RATIO) and company scopes.
+PAR_MATCH_CASES = [
+    dict(names=["Net Profit"], limit=10),
+    dict(quarters=["Q1_FY2024"], limit=30),
+    dict(quarters=["Q2_FY2023", "Q3_FY2023"], types=[0], limit=16),
+    dict(types=[2], limit=50),
+    dict(names=["Metric 7", "Metric 12"], quarters=["Q4_FY2022"], limit=30),
+    dict(limit=25),
+    dict(names=["No Such Entity"], limit=10),
+    dict(names=["Rare B"], companies=["Rare Bank"], limit=30),
+    dict(names=["Metric 3"], companies=["ICICI Bank"], limit=20),
+]
+PAR_COS = 0.999  # bf16 pp / sp forward against the single-device forward, per row
+
+
+@contextlib.contextmanager
+def uncounted(*wrappers):
+    """Launches made inside (references, timings, direct kernel checks) do
+    not count towards the parallel path's launches."""
+    saved = [w.launches for w in wrappers]
+    try:
+        yield
+    finally:
+        for w, n in zip(wrappers, saved):
+            w.launches = n
+
+
+@contextlib.contextmanager
+def int8_plain(topk):
+    """The sharded programs call fused_topk_int8_plain where they would
+    launch the int8 kernel: the kernel's reference on the same inputs."""
+    kernel = topk.cosine_topk_fused_int8
+    topk.cosine_topk_fused_int8 = lambda q, c, s, k, n_valid=None: topk.fused_topk_int8_plain(q, c, s, k, n_valid)
+    try:
+        yield
+    finally:
+        topk.cosine_topk_fused_int8 = kernel
+
+
+def par_mesh(dev, p: int, axis: str = "data"):
+    from ragfin_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh((axis,), devices=[dev] * p)
+
+
+def hit_rows(hits) -> list[list[tuple[str, float]]]:
+    return [[(h.id, h.score) for h in hs] for hs in hits]
+
+
+def par_index(torch, topk, index, idx8, qs) -> None:
+    """(a) ShardedVectorIndex.from_dense over the main path's indexes."""
+    from ragfin_tpu_torch.parallel.sharded import ShardedVectorIndex
+
+    with uncounted(topk.cosine_topk_fused):
+        flat = [[h.to_dict(False) for h in hs] for hs in index.search_texts(qs, top_k=10)]
+    for p in (1, 2):
+        mesh = par_mesh(index.matrix_t.device, p)
+        sh = ShardedVectorIndex.from_dense(index, mesh=mesh)
+        got = sh.search_texts(qs, top_k=10)
+        bad = [q for q, a, b in zip(qs, flat, got) if not hits_agree(a, [h.to_dict(False) for h in b], F32_TOL)]
+        if bad:
+            raise AssertionError(f"sharded f32 index P={p} differs from the flat index for {bad}")
+        sh8 = ShardedVectorIndex.from_dense(idx8, mesh=mesh, dtype="int8")
+        got8 = hit_rows(sh8.search_texts(qs, top_k=10))
+        with int8_plain(topk):
+            want8 = hit_rows(sh8.search_texts(qs, top_k=10))
+        if got8 != want8:
+            raise AssertionError(f"sharded int8 index P={p}: not bitwise equal to the plain version")
+        print(f"parallel (a) engine index P={p} ({sh.matrix_t[0].shape[1]} columns a shard): "
+              f"{len(qs)} questions, f32 hits equal to the flat index (1e-5), int8 hits bitwise "
+              f"equal to the plain version", flush=True)
+
+
+def par_scale(torch, topk, dev) -> dict:
+    """(b) 4,000,037 seeded unit vectors, f32 and int8, 1 and 4 shards,
+    Q in {1, 64}; the negative-similarity corpus with 98 % padding over 8
+    shards; the kernels at limit 0."""
+    import numpy as np
+
+    from ragfin_tpu_torch.ops.quantize import quantize_corpus_t
+    from ragfin_tpu_torch.parallel.mesh import shard
+    from ragfin_tpu_torch.parallel.sharded import sharded_cosine_topk
+
+    n, k = N_SCALE, PAR_K
+    n_pad = -(-n // 512) * 512  # 128 columns a shard unit, 4 shards
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    ct = torch.zeros((D, n_pad), device=dev)
+    for c0 in range(0, n, 1 << 20):
+        x = torch.randn((min(n, c0 + (1 << 20)) - c0, D), generator=gen, device=dev)
+        ct[:, c0 : c0 + x.shape[0]] = (x / torch.linalg.vector_norm(x, dim=1, keepdim=True)).T
+    q = torch.randn((64, D), generator=gen, device=dev)
+    q = (q / torch.linalg.vector_norm(q, dim=1, keepdim=True)).contiguous()
+    c8, sc = quantize_corpus_t(ct)
+    parts = {p: tuple(shard(par_mesh(dev, p), "data", t, 1) for t in (ct, c8, sc)) for p in (1, 4)}
+    got, err = {}, 0.0
+    for p, (cp, c8p, scp) in parts.items():
+        mesh = par_mesh(dev, p)
+        for q_n in (1, 64):
+            qq = q[:q_n]
+            s, i = sharded_cosine_topk(mesh, "data", qq, cp, k, n_valid=n)
+            s8, i8 = sharded_cosine_topk(mesh, "data", qq, c8p, k, n_valid=n, scales=scp)
+            got[(p, q_n)] = (s, i, s8, i8)
+            with int8_plain(topk):
+                w8 = sharded_cosine_topk(mesh, "data", qq, c8p, k, n_valid=n, scales=scp)
+            if not (torch.equal(s8, w8[0]) and torch.equal(i8, w8[1])):
+                raise AssertionError(f"sharded int8 P={p} Q={q_n}: not bitwise equal to the plain version")
+            ref_s, ref_i = f64_oracle(torch, qq, ct, k + 1, n)
+            s_np, i_np = s.cpu().numpy(), i.cpu().numpy()
+            e = float(np.max(np.abs(s_np - ref_s[:, :k])))
+            err = max(err, e)
+            if e > F32_TOL or not ids_agree(ref_s, ref_i, i_np, F32_TOL):
+                raise AssertionError(f"sharded f32 P={p} Q={q_n}: err {e}, or ids differ from the f64 oracle")
+    # Negative similarities, ~98 % padding over 8 shards: shards 1-7 hold
+    # pads only, so their local limit is 0.
+    rng = np.random.default_rng(SEED + 11)
+    base = rng.standard_normal(D).astype(np.float32)
+    base /= np.linalg.norm(base)
+    neg = rng.standard_normal((100, D)).astype(np.float32)
+    neg /= np.linalg.norm(neg, axis=1, keepdims=True)
+    neg -= 2 * np.maximum(neg @ base, 0)[:, None] * base
+    neg /= np.linalg.norm(neg, axis=1, keepdims=True)
+    ct_neg = torch.nn.functional.pad(torch.from_numpy(neg.T.copy()), (0, 1024 - 100)).to(dev)
+    mesh8 = par_mesh(dev, 8)
+    qn = torch.from_numpy(base[None]).to(dev)
+    s, i = sharded_cosine_topk(mesh8, "data", qn, shard(mesh8, "data", ct_neg, 1), 5, n_valid=100,
+                               method="fused")
+    oracle = np.argsort(-(neg @ base), kind="stable")[:5]
+    if i.cpu().numpy()[0].tolist() != oracle.tolist() or float(s.max()) >= 0:
+        raise AssertionError(f"98 % padding: {i.cpu().numpy()[0]} != oracle {oracle}")
+    # The kernels on a pure-pad shard (limit 0) return empty lists.
+    with uncounted(topk.cosine_topk_fused, topk.cosine_topk_fused_int8):
+        c8n, scn = quantize_corpus_t(ct_neg)
+        for s0, i0 in (topk.cosine_topk_fused(qn, ct_neg[:, 128:256].contiguous(), 5, n_valid=0),
+                       topk.cosine_topk_fused_int8(qn, c8n[:, 128:256].contiguous(),
+                                                   scn[:, 128:256].contiguous(), 5, n_valid=0)):
+            if not (torch.isinf(s0).all() and (i0 == topk.INT32_MAX).all()):
+                raise AssertionError(f"a kernel at limit 0 returned {s0}, {i0}")
+    print(f"parallel (b) scale: N={n} D={D} k={k}, f32 ids equal to the f64 oracle outside "
+          f"{F32_TOL} tie bands (max err {err:.2e}), int8 bitwise equal to the plain version, "
+          f"P = 1 and 4, Q = 1 and 64; 98 % padding over 8 shards equal to the oracle; "
+          f"both kernels return empty lists at limit 0", flush=True)
+    return {"ct": ct, "c8": c8, "sc": sc, "q": q, "parts": parts, "got": got, "n": n, "err": err}
+
+
+def par_scale_times(torch, topk, dev, scale) -> dict:
+    """The sharded calls of (b) beside the direct fused call (CUDA events,
+    median of 20): the difference is the sharded wrapper's cost."""
+    from ragfin_tpu_torch.parallel.sharded import sharded_cosine_topk
+
+    n, k, out = scale["n"], PAR_K, {}
+    with uncounted(topk.cosine_topk_fused, topk.cosine_topk_fused_int8):
+        for label in ("f32", "int8"):
+            for q_n in (1, 64):
+                qq = scale["q"][:q_n]
+                if label == "f32":
+                    direct = lambda: topk.cosine_topk_fused(qq, scale["ct"], k, n_valid=n)
+                else:
+                    direct = lambda: topk.cosine_topk_fused_int8(qq, scale["c8"], scale["sc"], k, n_valid=n)
+                row = {"direct": time_ms(torch, direct)}
+                for p, (cp, c8p, scp) in scale["parts"].items():
+                    mesh = par_mesh(dev, p)
+                    if label == "f32":
+                        fn = lambda: sharded_cosine_topk(mesh, "data", qq, cp, k, n_valid=n)
+                    else:
+                        fn = lambda: sharded_cosine_topk(mesh, "data", qq, c8p, k, n_valid=n, scales=scp)
+                    row[p] = time_ms(torch, fn)
+                out[(label, q_n)] = row
+                print(f"parallel scale {label} Q={q_n} N={n} k={k}: direct fused {row['direct']:.4f} ms; "
+                      f"sharded P=1 {row[1]:.4f} ms (+{row[1] - row['direct']:.4f}), P=4 {row[4]:.4f} ms "
+                      f"(+{row[4] - row['direct']:.4f}) [{CARD}]", flush=True)
+    return out
+
+
+def match_count(graph, kw) -> int:
+    """Hits of one match on the packed host columns (numpy)."""
+    import numpy as np
+
+    host = graph._pack()["host"]
+    sel = np.ones(host["quarter_ids"].shape[0], bool)
+    for key, col, ids in (("quarters", "quarter_ids", graph._quarter_id),
+                          ("names", "entity_ids", graph._entity_id),
+                          ("companies", "company_ids", graph._company_id_of)):
+        if kw.get(key):
+            sel &= np.isin(host[col], [ids[x] for x in kw[key] if x in ids])
+    if kw.get("types"):
+        sel &= np.isin(host["type_ids"], kw["types"])
+    return int(sel.sum())
+
+
+def par_graph(torch, graph_index, graph) -> None:
+    """(c) the 10M-fact store row-sharded over 1 and 4 shards."""
+    from ragfin_tpu_torch.parallel.sharded_graph import ShardedGraphIndex
+
+    with uncounted(graph_index.masked_first_k):
+        want = [graph.match(**kw) for kw in PAR_MATCH_CASES]
+    counts = [match_count(graph, kw) for kw in PAR_MATCH_CASES]
+    dev = graph._pack()["quarter_ids"].device
+    for p in (1, 4):
+        before = graph_index.masked_first_k.launches
+        view = ShardedGraphIndex(graph, mesh=par_mesh(dev, p), axis="data")
+        for kw, w, c in zip(PAR_MATCH_CASES, want, counts):
+            got = view.match(**kw)
+            _, _, count = view.match_rows(**kw)
+            if got != w or int(count) != c:
+                raise AssertionError(f"sharded graph P={p} {kw}: {len(got)} rows, count {int(count)} "
+                                     f"against {len(w)} rows, {c}")
+        made = graph_index.masked_first_k.launches - before
+        if made != 2 * p * len(PAR_MATCH_CASES):
+            raise AssertionError(f"sharded graph P={p}: {made} first-k launches, "
+                                 f"{2 * p * len(PAR_MATCH_CASES)} expected")
+        print(f"parallel (c) graph: {view.n_rows} facts over {p} shards ({view.shard_rows} rows a shard): "
+              f"{len(PAR_MATCH_CASES)} matches (rows and counts) equal to GraphIndex.match, "
+              f"{made} first-k launches", flush=True)
+
+
+def dequantized_oracle(torch, q, index, k):
+    """f64 top-k over an int8 IVF index's dequantized cells, original ids."""
+    cells = (index.cells.double() * index.scales.double()).permute(1, 0, 2).reshape(D, -1)
+    scores = q.double() @ cells
+    scores[:, index.orig_ids == 0x7FFFFFFF] = float("-inf")
+    s, pos = torch.topk(scores, k + 1, dim=1)
+    return s.float().cpu().numpy(), index.orig_ids[pos].cpu().numpy()
+
+
+def par_ivf(torch, topk, ivf, ct32, q, idx32, idx8) -> dict:
+    """(d) phase 6's IVF over 4 shards (cells padded to a multiple of 4)."""
+    import numpy as np
+
+    from ragfin_tpu_torch.parallel.sharded_ivf import shard_ivf_arrays, sharded_ivf_topk
+
+    dev, k = q.device, IVF_K
+    mesh = par_mesh(dev, 4)
+    with uncounted(topk.cosine_topk_fused, ivf.pruned_topk):
+        es, ei = (t.cpu().numpy() for t in topk.cosine_topk_fused(q, ct32, k + 1))
+        single10 = ivf.ivf_topk(q, idx32, 10, nprobe=IVF_NPROBE, block_q=IVF_BLOCK_Q,
+                                precision="exact")[1].cpu().numpy()
+    e8s, e8i = dequantized_oracle(torch, q, idx8, k)
+    out = {}
+    for label, index, ref_s, ref_i in (("f32", idx32, es, ei), ("int8", idx8, e8s, e8i)):
+        arrays = shard_ivf_arrays(mesh, "data", index)
+
+        def run(nprobe, kk=k, arrays=arrays):
+            return sharded_ivf_topk(mesh, "data", q, *arrays[:4], kk, nprobe=nprobe,
+                                    block_q=IVF_BLOCK_Q, n_cells_real=arrays[4])
+
+        s, i = (t.cpu().numpy() for t in run(index.n_cells))
+        e = float(np.max(np.abs(s - ref_s[:, :k])))
+        if e > F32_TOL or not ids_agree(ref_s, ref_i, i, F32_TOL):
+            raise AssertionError(f"sharded IVF {label} at full probe: err {e}, or ids differ from the exact tier")
+        pruned = run(IVF_NPROBE, 10)[1].cpu().numpy()
+        recall = float(np.mean([len(set(a) & set(b)) / 10 for a, b in zip(pruned, ref_i[:, :10])]))
+        out[label] = {"cells": arrays[0][0].shape[0] * 4, "recall": recall, "run": run}
+    recall1 = float(np.mean([len(set(a) & set(b)) / 10 for a, b in zip(single10, ei[:, :10])]))
+    print(f"parallel (d) IVF: {idx32.n_cells} cells padded to {out['f32']['cells']} over 4 shards, Q=64, "
+          f"block_q {IVF_BLOCK_Q}, k {k}: at full probe f32 equal to the exact fused tier and int8 to "
+          f"its dequantized cells (1e-5); recall@10 at nprobe {IVF_NPROBE}: f32 {out['f32']['recall']:.3f}, "
+          f"int8 {out['int8']['recall']:.3f}, single-device pruned kernel {recall1:.3f}", flush=True)
+    out["recall_single"] = recall1
+    return out
+
+
+def par_ivf_times(torch, ivf, q, idx32, sharded) -> None:
+    with uncounted(ivf.pruned_topk):
+        kernel_ms = time_ms(torch, lambda: ivf.ivf_topk(q, idx32, IVF_K, nprobe=IVF_NPROBE,
+                                                        block_q=IVF_BLOCK_Q, precision="exact"))
+        sh_ms = time_ms(torch, lambda: sharded["f32"]["run"](IVF_NPROBE), runs=5, warmup=1)
+    print(f"parallel IVF times, Q=64 nprobe {IVF_NPROBE} k {IVF_K} f32: sharded (4 shards, torch ops) "
+          f"{sh_ms:.4f} ms, single-device pruned kernel (ivf_topk) {kernel_ms:.4f} ms [{CARD}]", flush=True)
+
+
+def par_free_source(torch, ivf, ct32) -> None:
+    """(e) build_ivf on the same 1M corpus with free_source off and on."""
+    dev = ct32.device
+    built, peaks = [], []
+    for free in (False, True):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        built.append(ivf.build_ivf(ct32, cell=IVF_CELL, seed=SEED, free_source=free))
+        torch.cuda.synchronize()
+        peaks.append((torch.cuda.max_memory_allocated(dev) - base, time.perf_counter() - t0))
+    a, b = built
+    if not (torch.equal(a.cells, b.cells) and torch.equal(a.orig_ids, b.orig_ids)
+            and torch.equal(a.centroids, b.centroids)):
+        raise AssertionError("build_ivf(free_source=True) built another index")
+    source = ct32.numel() * ct32.element_size()
+    if peaks[0][0] - peaks[1][0] < source:
+        raise AssertionError(f"free_source lowered the build's peak by {peaks[0][0] - peaks[1][0]} bytes, "
+                             f"less than the source's {source}")
+    print(f"parallel (e) build_ivf N={ct32.shape[1]} cell {IVF_CELL}: peak above the caller's "
+          f"{peaks[0][0] / 2**30:.3f} GiB off ({peaks[0][1]:.1f} s), {peaks[1][0] / 2**30:.3f} GiB with "
+          f"free_source ({peaks[1][1]:.1f} s); the source is {source / 2**30:.3f} GiB; cells, ids and "
+          f"centroids equal [{CARD}]", flush=True)
+
+
+def par_encoder(torch, here, dev, chunks) -> None:
+    """(f) the committed domain encoder pipelined (pp = 2, M = 4) and
+    sequence-parallel (sp = 4); one pp train step; the residual MLP."""
+    import dataclasses
+
+    import numpy as np
+
+    from ragfin_tpu_torch.models.domain_encoder import load_encoder_checkpoint
+    from ragfin_tpu_torch.models.minilm import MiniLMEncoder, params_from_flax
+    from ragfin_tpu_torch.parallel import pipeline as ppl
+    from ragfin_tpu_torch.parallel.minilm_pipeline import make_minilm_pp_forward, make_minilm_pp_train_step
+    from ragfin_tpu_torch.parallel.minilm_sp import make_minilm_sp_forward
+
+    flax_params, tok, cfg, _ = load_encoder_checkpoint(os.path.join(here, "checkpoints", "domain_encoder"))
+    sd = {k_: v.to(dev) for k_, v in params_from_flax(flax_params).items()}
+    ids, mask = tok.encode_batch([c.text for c in chunks[:64]], pad_multiple=cfg.max_position)
+    if ids.shape != (64, 192):
+        raise AssertionError(f"encoder batch {ids.shape}, wanted 64 chunks of 192 tokens")
+    ids = torch.from_numpy(ids.astype(np.int64)).to(dev)
+    mask = torch.from_numpy(mask).to(dev)
+    pp_mesh, sp_mesh = par_mesh(dev, 2, "pp"), par_mesh(dev, 4, "sp")
+    line = []
+    for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        model = MiniLMEncoder(c).to(dev).eval()
+        model.load_state_dict(sd)
+        pp = make_minilm_pp_forward(pp_mesh, c)
+        sp = make_minilm_sp_forward(sp_mesh, c)
+        with torch.no_grad():
+            ref = model(ids, mask)
+            out_pp = pp(sd, ids.reshape(4, 16, -1), mask.reshape(4, 16, -1)).reshape(64, -1)
+            out_sp = sp(sd, ids, mask)
+            for label, out in (("pp", out_pp), ("sp", out_sp)):
+                if name == "bf16":
+                    worst = float((out * ref).sum(dim=1).min())
+                    ok = worst >= PAR_COS
+                else:
+                    worst = float((out - ref).abs().max())
+                    ok = worst <= F32_TOL
+                if not ok:
+                    raise AssertionError(f"{label} encoder {name}: {worst} against the single-device forward")
+                line.append(f"{label} {name} {'min cosine' if name == 'bf16' else 'max err'} {worst:.6g}")
+            times = {label: time_ms(torch, fn, runs=5, warmup=1) for label, fn in (
+                ("single", lambda: model(ids, mask)),
+                ("pp", lambda: pp(sd, ids.reshape(4, 16, -1), mask.reshape(4, 16, -1))),
+                ("sp", lambda: sp(sd, ids, mask)))}
+        line.append(f"{name} ms single {times['single']:.3f}, pp {times['pp']:.3f}, sp {times['sp']:.3f}")
+    # One pp train step at f32 against a single-device replay of its loss.
+    c32 = dataclasses.replace(cfg, dtype=torch.float32)
+    model = MiniLMEncoder(c32).to(dev).eval()
+    model.load_state_dict(sd)
+    targets = torch.randn((4, 16, cfg.hidden_size), generator=torch.Generator(device=dev).manual_seed(SEED),
+                          device=dev)
+    new, loss = make_minilm_pp_train_step(pp_mesh, c32)(sd, ids.reshape(4, 16, -1), mask.reshape(4, 16, -1),
+                                                        targets)
+    with torch.no_grad():
+        replay = torch.mean((model(ids, mask).reshape(4, 16, -1) - targets) ** 2)
+    moved = [bool((new[f"layers.{i}.intermediate.weight"] != sd[f"layers.{i}.intermediate.weight"]).any())
+             for i in range(cfg.num_layers)]
+    if abs(float(loss) - float(replay)) > F32_TOL or not all(moved):
+        raise AssertionError(f"pp train step: loss {float(loss)} against {float(replay)}, layers moved {moved}")
+    # The residual-MLP pipeline at d = 384.
+    params = ppl.init_pipeline_params(torch.Generator().manual_seed(SEED), 8, D).to(dev)
+    x = torch.randn((8, 64, D), generator=torch.Generator(device=dev).manual_seed(SEED + 1), device=dev)
+    ref = torch.stack([ppl.sequential_forward(params, mb) for mb in x])
+    mlp_err = max(float((ppl.make_pipeline_forward(par_mesh(dev, p, "pp"))(params, x) - ref).abs().max())
+                  for p in (2, 4))
+    if mlp_err > F32_TOL:
+        raise AssertionError(f"residual-MLP pipeline differs from sequential_forward by {mlp_err}")
+    print(f"parallel (f) domain encoder ({cfg.num_layers} layers, hidden {cfg.hidden_size}) on 64 chunks x "
+          f"192 tokens, pp = 2 (M = 4), sp = 4: {'; '.join(line)}; pp train step loss {float(loss):.6f} "
+          f"(replay {float(replay):.6f}), all {cfg.num_layers} layers updated; residual MLP L=8 d={D} M=8 "
+          f"B=64 pp 2 and 4 within {mlp_err:.1e} of sequential [{CARD}]", flush=True)
+
+
+def par_process_group(torch, topk, dev, scale) -> int:
+    """(g) case (b) again through a one-rank NCCL process group."""
+    import socket
+
+    import torch.distributed as dist
+
+    from ragfin_tpu_torch.parallel.sharded import sharded_cosine_topk
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0)
+    try:
+        before = topk.cosine_topk_fused.launches + topk.cosine_topk_fused_int8.launches
+        for p, (cp, c8p, scp) in scale["parts"].items():
+            mesh = par_mesh(dev, p)
+            for q_n in (1, 64):
+                qq = scale["q"][:q_n]
+                s, i = sharded_cosine_topk(mesh, "data", qq, cp, PAR_K, n_valid=scale["n"])
+                s8, i8 = sharded_cosine_topk(mesh, "data", qq, c8p, PAR_K, n_valid=scale["n"], scales=scp)
+                if not all(torch.equal(a, b) for a, b in zip((s, i, s8, i8), scale["got"][(p, q_n)])):
+                    raise AssertionError(f"process-group search P={p} Q={q_n} differs from the in-process one")
+        made = topk.cosine_topk_fused.launches + topk.cosine_topk_fused_int8.launches - before
+    finally:
+        dist.destroy_process_group()
+    print(f"parallel (g) process group (nccl, world size 1): case (b) equal to the in-process results, "
+          f"{made} kernel launches", flush=True)
+    return made
+
+
+def parallel_phase(torch, topk, graph_index, ivf, here, main_in, graph, ivf_in) -> dict:
+    """Phase 10: the parallel layer on the card, counters at 0 just before
+    (a) and read after (d)."""
+    from ragfin_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    t0 = time.perf_counter()
+    index, idx8, qs = main_in
+    ct32, q_ivf, idx32, idx8_ivf = ivf_in
+    dev = index.matrix_t.device
+    wrappers = (topk.cosine_topk_fused, topk.cosine_topk_fused_int8, graph_index.masked_first_k,
+                ivf.pruned_topk)
+    for w in wrappers:
+        w.launches = 0
+    par_index(torch, topk, index, idx8, qs)
+    scale = par_scale(torch, topk, dev)
+    par_graph(torch, graph_index, graph)
+    sharded_ivf = par_ivf(torch, topk, ivf, ct32, q_ivf, idx32, idx8_ivf)
+    torch.cuda.synchronize()
+    launches = {"fused_topk": topk.cosine_topk_fused.launches,
+                "fused_topk_int8": topk.cosine_topk_fused_int8.launches,
+                "first_k": graph_index.masked_first_k.launches,
+                "ivf_topk": ivf.pruned_topk.launches}
+    print(f"parallel launches (a)-(d): {launches} (the sharded IVF scores with torch ops, as JAX's "
+          f"does with XLA ops: no pruned-kernel launch)", flush=True)
+    par_scale_times(torch, topk, dev, scale)
+    par_ivf_times(torch, ivf, q_ivf, idx32, sharded_ivf)
+    par_free_source(torch, ivf, ct32)
+    par_encoder(torch, here, dev, index.records)
+    group_launches = par_process_group(torch, topk, dev, scale)
+    dryrun_multichip(4)
+    print(f"parallel (h) dryrun_multichip(4) on the card: stages 2-6 passed", flush=True)
+    for w in wrappers:
+        w.launches = 0
+    seconds = time.perf_counter() - t0
+    print(f"parallel phase: {seconds:.1f} s [{CARD}]", flush=True)
+    return {"launches": launches, "group_launches": group_launches, "seconds": seconds,
+            "max_abs_err": scale["err"]}
+
+
+def parallel_inputs(torch, graph_index, ivf):
+    """Phase 10's inputs when it runs alone (--parallel): the main path's
+    indexes and questions, the 10M-fact store, phase 6's IVF."""
+    chunks = main_chunks()
+    engine = main_engine(chunks)
+    engine.close()
+    index = engine.vector_index
+    scoped, unscoped = questions(chunks)
+    main_in = (index, int8_index(index, chunks), scoped + unscoped)
+    return main_in, scale_graph(graph_index), ivf_inputs(torch, ivf)[:4]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(
         description=__doc__.splitlines()[0],
@@ -2826,6 +3356,8 @@ def main() -> int:
                     help="build, check and time the kernels alone (phases 1, 2, 4, 6 and 7)")
     ap.add_argument("--graph", action="store_true",
                     help="build, first-k alone and the graph store at scale (phases 1, 4 and 5)")
+    ap.add_argument("--parallel", action="store_true",
+                    help="build, then the parallel layer alone (phases 1 and 10), with its own inputs")
     ap.add_argument("--sweep", action="store_true",
                     help="also time the IVF wrapper's grid rule against fixed splits (phase 6), "
                          "the int8 wrapper's rows per block against 64 (phase 2) and "
@@ -2857,6 +3389,9 @@ def main() -> int:
     print(f"kernels built in {time.perf_counter() - t0:.1f} s ({len(logs)} sources)", flush=True)
     pass1_ptxas(_cuda)
     merge = merge_phase(torch, here)
+    if args.parallel:
+        parallel_phase(torch, topk, graph_index, ivf, here, *parallel_inputs(torch, graph_index, ivf))
+        return 0
 
     first_k = first_k_phase(torch, graph_index, sweep=args.sweep)
     if args.graph:
@@ -2867,8 +3402,11 @@ def main() -> int:
     ivf_alone = ivf_phase(torch, topk, ivf, sweep=args.sweep)
     if args.kernels:
         return 0
-    graph_scale_phase(torch, graph_index)
+    graph = graph_scale_phase(torch, graph_index)
     main_path = main_path_phase(torch, topk)
+    par = parallel_phase(torch, topk, graph_index, ivf, here, main_path.pop("inputs"), graph,
+                         ivf_alone.pop("inputs"))
+    del graph
     import tempfile
 
     with tempfile.TemporaryDirectory(prefix="ragfin_smoke_") as work_dir:
@@ -2945,7 +3483,11 @@ def main() -> int:
     table[0]["minilm_launches"] = minilm_run["launches"]
     table[0]["train_launches"] = train["launches"]
     for row in table:
-        if row["launches"] < 1 or row.get("hashed_launches", 1) < 1 or row.get("train_launches", 1) < 1:
+        if row["name"] in ("fused_topk", "fused_topk_int8", "first_k"):
+            row["parallel_launches"] = par["launches"][row["name"]]
+    for row in table:
+        if row["launches"] < 1 or any(row.get(key, 1) < 1 for key in (
+                "hashed_launches", "train_launches", "parallel_launches")):
             return fail(f"kernel {row['name']} was launched no time on its path")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

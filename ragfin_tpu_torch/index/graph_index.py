@@ -129,7 +129,8 @@ def masked_first_k(hit: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tenso
     device = hit.get_device()
     stream = torch._C._cuda_getCurrentRawStream(device)
     _, scratch, n_status = _scratch_for(device, stream, -(-n // FIRST_K_SPAN))
-    err = _cuda.kernel("first_k")(hit.data_ptr(), n, k, scratch, n_status, out.data_ptr(), stream)
+    with torch.cuda.device(device):  # launch on the hit vector's card
+        err = _cuda.kernel("first_k")(hit.data_ptr(), n, k, scratch, n_status, out.data_ptr(), stream)
     _cuda.check(err, "first_k")
     masked_first_k.launches += 1
     return out[:k], out[k]

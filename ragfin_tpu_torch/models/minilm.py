@@ -62,11 +62,64 @@ def _dense(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
 
 
 def _layer_norm(norm: nn.LayerNorm, x: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+    return _normalize(x, norm.weight, norm.bias, norm.eps, out_dtype)
+
+
+def _normalize(x, weight, bias, eps: float, out_dtype: torch.dtype) -> torch.Tensor:
     x = x.float()
     mean = x.mean(dim=-1, keepdim=True)
     var = torch.clamp((x * x).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
-    mul = torch.rsqrt(var + norm.eps) * norm.weight
-    return ((x - mean) * mul + norm.bias).to(out_dtype)
+    mul = torch.rsqrt(var + eps) * weight
+    return ((x - mean) * mul + bias).to(out_dtype)
+
+
+def embed_tokens(p: dict, input_ids: torch.Tensor, positions: torch.Tensor,
+                 config: MiniLMConfig) -> torch.Tensor:
+    """Token + position + type embeddings and their LayerNorm in the
+    activation dtype, from the ``state_dict`` entries ``p`` (the encoder's
+    own, or the parallel stages'); ``positions [S]`` are the tokens' global
+    positions."""
+    dt = config.dtype
+    x = F.embedding(input_ids, p["word_embeddings.weight"].to(dt))
+    x = x + F.embedding(positions, p["position_embeddings.weight"].to(dt))[None]
+    x = x + p["token_type_embeddings.weight"][0].to(dt)
+    return _normalize(x, p["embeddings_norm.weight"], p["embeddings_norm.bias"], config.layer_norm_eps, dt)
+
+
+def pool_tokens(x: torch.Tensor, mask: torch.Tensor, config: MiniLMConfig) -> torch.Tensor:
+    """Unit sentence embeddings [..., H] f32 from token states [..., S, H]:
+    the CLS row, or the mean over real tokens (1e-9 floor), L2-normalised
+    (1e-12 floor)."""
+    if config.pooling == "cls":
+        pooled = x[..., 0, :].float()
+    else:
+        weights = mask.float()[..., None]
+        pooled = (x.float() * weights).sum(dim=-2) / torch.clamp(weights.sum(dim=-2), min=1e-9)
+    return unit_rows(pooled)
+
+
+def unit_rows(pooled: torch.Tensor) -> torch.Tensor:
+    """L2-normalise pooled embeddings (1e-12 floor)."""
+    norm = torch.linalg.vector_norm(pooled, dim=-1, keepdim=True)
+    return pooled / torch.clamp(norm, min=1e-12)
+
+
+def attend(config: MiniLMConfig, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           mask: torch.Tensor) -> torch.Tensor:
+    """Multi-head attention of projected queries ``[B, Sq, H]`` over keys
+    and values ``[B, Sk, H]`` with key mask ``[B, Sk]``: the context ``[B,
+    Sq, H]`` before the output projection. Sq may be a slice of the
+    sequence (parallel/minilm_sp.py attends its local rows to all keys)."""
+
+    def split(t):  # [B, S, H] -> [B, heads, S, head_dim]
+        return t.reshape(t.shape[0], t.shape[1], config.num_heads, config.head_dim).transpose(1, 2)
+
+    scores = torch.matmul(split(q).float(), split(k).float().transpose(-1, -2))
+    scores = scores / math.sqrt(config.head_dim)
+    scores = scores.masked_fill(~mask[:, None, None, :], -1e9)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    ctx = torch.matmul(probs, split(v))
+    return ctx.transpose(1, 2).reshape(q.shape[0], q.shape[1], config.hidden_size)
 
 
 class SelfAttention(nn.Module):
@@ -80,21 +133,7 @@ class SelfAttention(nn.Module):
         self.output = nn.Linear(h, h)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        cfg = self.config
-        b, s, _ = x.shape
-
-        def split(t):  # [B, S, H] -> [B, heads, S, head_dim]
-            return t.reshape(b, s, cfg.num_heads, cfg.head_dim).transpose(1, 2)
-
-        q = split(_dense(self.query, x))
-        k = split(_dense(self.key, x))
-        v = split(_dense(self.value, x))
-        scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
-        scores = scores / math.sqrt(cfg.head_dim)
-        scores = scores.masked_fill(~mask[:, None, None, :], -1e9)
-        probs = torch.softmax(scores, dim=-1).to(x.dtype)
-        ctx = torch.matmul(probs, v)
-        ctx = ctx.transpose(1, 2).reshape(b, s, cfg.hidden_size)
+        ctx = attend(self.config, _dense(self.query, x), _dense(self.key, x), _dense(self.value, x), mask)
         return _dense(self.output, ctx)
 
 
@@ -110,11 +149,13 @@ class TransformerLayer(nn.Module):
         self.ffn_norm = nn.LayerNorm(h, eps=eps)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        dt = x.dtype
-        x = _layer_norm(self.attention_norm, x + self.attention(x, mask), dt)
+        return self.feed_forward(_layer_norm(self.attention_norm, x + self.attention(x, mask), x.dtype))
+
+    def feed_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The per-token half of the layer: FFN, residual, LayerNorm."""
         h = F.gelu(_dense(self.intermediate, x))
         h = _dense(self.ffn_output, h)
-        return _layer_norm(self.ffn_norm, x + h, dt)
+        return _layer_norm(self.ffn_norm, x + h, x.dtype)
 
 
 class MiniLMEncoder(nn.Module):
@@ -131,23 +172,12 @@ class MiniLMEncoder(nn.Module):
         self.layers = nn.ModuleList(TransformerLayer(config) for _ in range(config.num_layers))
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
-        cfg = self.config
-        dt = cfg.dtype
         mask = attention_mask.bool()
-        pos = torch.arange(input_ids.shape[1], device=input_ids.device)
-        x = F.embedding(input_ids, self.word_embeddings.weight.to(dt))
-        x = x + F.embedding(pos, self.position_embeddings.weight.to(dt))[None]
-        x = x + self.token_type_embeddings.weight[0].to(dt)
-        x = _layer_norm(self.embeddings_norm, x, dt)
+        positions = torch.arange(input_ids.shape[1], device=input_ids.device)
+        x = embed_tokens(dict(self.named_parameters()), input_ids, positions, self.config)
         for layer in self.layers:
             x = layer(x, mask)
-        if cfg.pooling == "cls":
-            pooled = x[:, 0, :].float()
-        else:
-            weights = mask.float()[:, :, None]
-            pooled = (x.float() * weights).sum(dim=1) / torch.clamp(weights.sum(dim=1), min=1e-9)
-        norm = torch.linalg.vector_norm(pooled, dim=-1, keepdim=True)
-        return pooled / torch.clamp(norm, min=1e-12)
+        return pool_tokens(x, mask, self.config)
 
 
 _FLAX_LINEARS = {

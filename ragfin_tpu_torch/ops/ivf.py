@@ -169,15 +169,23 @@ def _candidate_cells(corpus_t: torch.Tensor, centroids: torch.Tensor, topc: int,
 
 def _cell_means(corpus_t: torch.Tensor, assign: torch.Tensor, n_cells: int, block_cols: int):
     """Cell means, streamed over column blocks. Segment id ``n_cells`` is a
-    dump slot for pad columns, so zero pads never dilute a real cell."""
+    dump slot for pad columns, so zero pads never dilute a real cell.
+
+    Each block's columns are sorted by cell (stably) and summed per cell in
+    column order by ``segment_reduce``: no atomics, so a build on the card
+    gives the same index every time (``index_add_`` there sums in the order
+    its atomics land)."""
     d, n = corpus_t.shape
     sums = torch.zeros((n_cells + 1, d), dtype=torch.float32, device=corpus_t.device)
-    counts = torch.zeros((n_cells + 1,), dtype=torch.float32, device=corpus_t.device)
+    counts = torch.zeros((n_cells + 1,), dtype=torch.int64, device=corpus_t.device)
     for start in range(0, n, block_cols):
         seg = assign[start : start + block_cols]
-        sums.index_add_(0, seg, corpus_t[:, start : start + block_cols].T.float())
-        counts.index_add_(0, seg, torch.ones_like(seg, dtype=torch.float32))
-    return (sums / counts.clamp(min=1.0)[:, None])[:n_cells]
+        order = torch.sort(seg, stable=True)[1]
+        lengths = torch.bincount(seg, minlength=n_cells + 1)
+        rows = corpus_t[:, start : start + block_cols].T.float()[order]
+        sums += torch.segment_reduce(rows, "sum", lengths=lengths, axis=0)
+        counts += lengths
+    return (sums / counts.clamp(min=1).float()[:, None])[:n_cells]
 
 
 def build_ivf(
@@ -187,6 +195,7 @@ def build_ivf(
     candidates: int = 16,
     seed: int = 0,
     quantize: bool = False,
+    free_source: bool = False,
 ) -> IVFIndex:
     """Cluster the corpus into balanced ``cell``-sized tiles.
 
@@ -194,6 +203,14 @@ def build_ivf(
     device the index is to live on. Lloyd iterations score on the device
     (blocked matmuls); the balanced assignment is a host pass. With
     ``quantize`` the cells are stored int8.
+
+    ``free_source`` drops this function's reference to the source matrix
+    before the final layout is made: before the int8 gather, or, for float
+    cells, between the gather and the transposing copy (which would
+    otherwise hold three corpus-sized tensors at once). The caller's own
+    reference keeps it alive, except when the corpus was padded here: then
+    the reference dropped is the padded copy. The index is the same either
+    way.
 
     ``candidates`` bounds how far a point can fall from its best cell under
     capacity pressure: when a natural cluster is larger than ``cell``, its
@@ -261,12 +278,17 @@ def build_ivf(
     scales = None
     if quantize:
         c8, sc = quantize_corpus_t(corpus_t)
+        if free_source:
+            del corpus_t
         c8 = c8[:, perm_dev]
         sc = sc[:, perm_dev]
         cells = c8.reshape(d, n_cells, cell).permute(1, 0, 2).contiguous()
         scales = sc.reshape(1, n_cells, cell).permute(1, 0, 2).contiguous()
     else:
-        cells = corpus_t[:, perm_dev].reshape(d, n_cells, cell).permute(1, 0, 2).contiguous()
+        corpus_perm = corpus_t[:, perm_dev]
+        if free_source:
+            del corpus_t
+        cells = corpus_perm.reshape(d, n_cells, cell).permute(1, 0, 2).contiguous()
 
     return IVFIndex(
         cells=cells,
@@ -461,13 +483,14 @@ def pruned_topk(
     out_s = torch.empty((qp, k), dtype=torch.float32, device=cells.device)
     out_i = torch.empty((qp, k), dtype=torch.int32, device=cells.device)
     dtype_code = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}[cells.dtype]
-    err = _cuda.kernel("ivf_topk")(
-        qin.data_ptr(), qscale.data_ptr() if int8 else None, qp, d,
-        cells.data_ptr(), scales.data_ptr() if int8 else None, dtype_code, n_cells, cell,
-        min(int(n_valid), n_cells * cell), k, tq, block_q, probe.data_ptr(), nprobe, splits,
-        part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
-        torch.cuda.current_stream(cells.device).cuda_stream,
-    )
+    with torch.cuda.device(cells.device):  # launch on the cells' card
+        err = _cuda.kernel("ivf_topk")(
+            qin.data_ptr(), qscale.data_ptr() if int8 else None, qp, d,
+            cells.data_ptr(), scales.data_ptr() if int8 else None, dtype_code, n_cells, cell,
+            min(int(n_valid), n_cells * cell), k, tq, block_q, probe.data_ptr(), nprobe, splits,
+            part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+            torch.cuda.current_stream(cells.device).cuda_stream,
+        )
     _cuda.check(err, "ivf_topk")
     pruned_topk.launches += 1
     return out_s, out_i

@@ -401,12 +401,13 @@ def cosine_topk_fused(
     out_s = torch.empty((nq, k), dtype=torch.float32, device=q.device)
     out_i = torch.empty((nq, k), dtype=torch.int32, device=q.device)
     ld, tile_stride, bn = _layout_args(corpus_t, n)
-    err = fn(
-        q.data_ptr(), nq, d, corpus_t.data_ptr(), int(corpus_t.dtype == torch.bfloat16),
-        ld, tile_stride, bn, n, limit, k, tq, per_chunk, chunks,
-        part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    with torch.cuda.device(q.device):  # launch on the corpus's card
+        err = fn(
+            q.data_ptr(), nq, d, corpus_t.data_ptr(), int(corpus_t.dtype == torch.bfloat16),
+            ld, tile_stride, bn, n, limit, k, tq, per_chunk, chunks,
+            part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
     _cuda.check(err, "fused_topk")
     cosine_topk_fused.launches += 1
     return out_s, out_i
@@ -451,12 +452,13 @@ def cosine_topk_fused_int8(
     out_s = torch.empty((nq, k), dtype=torch.float32, device=q8.device)
     out_i = torch.empty((nq, k), dtype=torch.int32, device=q8.device)
     ld, tile_stride, bn = _layout_args(corpus_i8, n)
-    err = fn(
-        q8.data_ptr(), qscale.data_ptr(), nq, d, corpus_i8.data_ptr(), scales.data_ptr(),
-        ld, tile_stride, bn, n, limit, k, tq, per_chunk, chunks,
-        part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
-        torch.cuda.current_stream(q8.device).cuda_stream,
-    )
+    with torch.cuda.device(q8.device):  # launch on the corpus's card
+        err = fn(
+            q8.data_ptr(), qscale.data_ptr(), nq, d, corpus_i8.data_ptr(), scales.data_ptr(),
+            ld, tile_stride, bn, n, limit, k, tq, per_chunk, chunks,
+            part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+            torch.cuda.current_stream(q8.device).cuda_stream,
+        )
     _cuda.check(err, "fused_topk_int8")
     cosine_topk_fused_int8.launches += 1
     return out_s, out_i

@@ -23,7 +23,13 @@ Names:
   host-exact numpy oracle at N = 65,536.
 - ``adversarial_1m``: columns sorted ascending by score, the worst case for a
   running merge.
-- ``graph_match_10m``, ``minilm_encode``, ``ivf<nprobe>[bq<bq>]_<bf16|int8>_q<Q>``.
+- ``graph_match_10m``, ``minilm_encode``, ``[tenm_]ivf<nprobe>[bq<bq>]_<bf16|int8>_q<Q>``
+  (``tenm_``: 4,883 cells of 2048, built with ``free_source=True`` from the
+  only reference to the corpus, recall against the full probe).
+- ``sharded_fused_1dev``, ``sharded_attrib_1dev``: the fused kernel through
+  ``parallel.sharded.sharded_cosine_topk`` on a one-shard mesh against the
+  direct call (N = 1M bf16, Q = 64, k = 10, both at the fast precision):
+  device times, and the host time per call of each.
 """
 
 from __future__ import annotations
@@ -236,11 +242,13 @@ def minilm_encode() -> None:
 def ivf_probe(name: str) -> None:
     from ragfin_tpu_torch.ops.ivf import build_ivf, ivf_topk
 
-    m = re.match(r"ivf(\d+)(?:bq(\d+))?_(bf16|int8)_q(\d+)$", name)
+    m = re.match(r"(tenm_)?ivf(\d+)(?:bq(\d+))?_(bf16|int8)_q(\d+)$", name)
     if not m:
         raise SystemExit(f"unknown ivf probe: {name}")
-    nprobe, bq, dtype, q = int(m.group(1)), int(m.group(2) or 128), m.group(3), int(m.group(4))
-    n, k = 1_000_000, 10
+    tenm, dtype = m.group(1), m.group(4)
+    nprobe, bq, q = int(m.group(2)), int(m.group(3) or 128), int(m.group(5))
+    # Cell-aligned at 10M, so that the build makes no padded copy.
+    n, k = (4883 * 2048 if tenm else 1_000_000), 10
     g = _gen(0)
     centers = torch.randn((256, D), generator=g, device=DEV)
     which = torch.randint(0, 256, (n,), generator=g, device=DEV)
@@ -250,8 +258,18 @@ def ivf_probe(name: str) -> None:
     picks = torch.randint(0, n, (q,), generator=_gen(5), device=DEV)
     qs = ct[:, picks].T.float() + 0.1 * torch.randn((q, D), generator=_gen(6), device=DEV)
     qs = qs / torch.linalg.vector_norm(qs, dim=1, keepdim=True)
-    idx = build_ivf(ct, cell=2048, iters=3, quantize=(dtype == "int8"))
-    _, io = T.cosine_topk_fused(qs, ct, k, precision="fast")
+    del x, nrm
+    if tenm:
+        # Hand build_ivf the only reference (list.pop), so free_source frees
+        # the corpus before the final layout; the recall oracle is then the
+        # full probe, which equals the exact search over the same corpus.
+        holder = [ct]
+        ct = None
+        idx = build_ivf(holder.pop(), cell=2048, iters=3, quantize=(dtype == "int8"), free_source=True)
+        _, io = ivf_topk(qs, idx, k, nprobe=idx.n_cells, block_q=bq)
+    else:
+        idx = build_ivf(ct, cell=2048, iters=3, quantize=(dtype == "int8"))
+        _, io = T.cosine_topk_fused(qs, ct, k, precision="fast")
     _, ii = ivf_topk(qs, idx, k, nprobe=nprobe, block_q=bq)
     io, ii = io.cpu().numpy(), ii.cpu().numpy()
     recall = float(np.mean([len(set(ii[r]) & set(io[r])) / k for r in range(q)]))
@@ -262,11 +280,50 @@ def ivf_probe(name: str) -> None:
     )
 
 
+def sharded_probe(name: str) -> None:
+    """The fused kernel through the sharded program on a one-shard mesh
+    against the direct call: device ms (CUDA events) and host ms per call
+    (host clock over 20 calls, one synchronize after the last)."""
+    from ragfin_tpu_torch.parallel.mesh import make_mesh, shard
+    from ragfin_tpu_torch.parallel.sharded import sharded_cosine_topk
+
+    n, q = 1_000_000, 64
+    ct = normal_bf16((D, n), 0)
+    qs = torch.randn((q, D), generator=_gen(1), device=DEV)
+    mesh = make_mesh(("data",), devices=[DEV])
+    parts = shard(mesh, "data", ct, 1)
+    direct = lambda: T.cosine_topk_fused(qs, ct, K, n_valid=n, precision="fast")
+    sharded = lambda: sharded_cosine_topk(mesh, "data", qs, parts, K, n_valid=n, method="fused",
+                                          precision="fast")
+    for a, b in zip(direct(), sharded()):
+        if not torch.equal(a, b):
+            raise SystemExit("the sharded program on one shard differs from the direct call")
+
+    def host_ms(fn, reps: int = 20) -> float:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    a, b = device_ms(direct), device_ms(sharded)
+    if name == "sharded_fused_1dev":
+        log(f"{name} N={n} bf16 Q={q} k={K}: sharded {b:.4f} ms/batch (direct {a:.4f})")
+        return
+    ha, hb = host_ms(direct), host_ms(sharded)
+    log(f"{name} N={n} bf16 Q={q} k={K}: device direct={a:.4f} sharded={b:.4f} ms "
+        f"(wrapper {b - a:+.4f}); host per call direct={ha:.4f} sharded={hb:.4f} ms ({hb - ha:+.4f})")
+
+
 def main(name: str) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_probe_torch.py: no CUDA device; the probes time the card")
     if name.startswith("ceiling_"):
         return ceiling_probe(name)
+    if name in ("sharded_fused_1dev", "sharded_attrib_1dev"):
+        return sharded_probe(name)
     if "fused_" in name:
         return fused_probe(name)
     if name in ("oracle_check", "oracle_check_padded"):
@@ -277,7 +334,7 @@ def main(name: str) -> None:
         return graph_match_10m()
     if name == "minilm_encode":
         return minilm_encode()
-    if name.startswith("ivf"):
+    if name.startswith(("ivf", "tenm_ivf")):
         return ivf_probe(name)
     raise SystemExit(f"unknown experiment: {name}")
 

@@ -185,6 +185,27 @@ def test_build_ivf_assignment_equals_jax_on_separated_clusters(quantize):
         assert np.array_equal(np.asarray(ji.scales), ti.scales.numpy())
 
 
+@pytest.mark.parametrize("n", [1024, 1000])  # 1000: the build pads its own copy
+@pytest.mark.parametrize("quantize", [False, True])
+def test_build_ivf_free_source_same_index(n, quantize):
+    """``free_source`` drops the build's reference to the source early; the
+    index is the same with it on and off, and equal to JAX's build with it
+    on. The caller's tensor is untouched."""
+    x = _clustered(n=n, clusters=8, seed=4, spread=0.3)
+    ct = torch.from_numpy(x.T.copy())
+    off = T.build_ivf(ct, cell=CELL, quantize=quantize)
+    on = T.build_ivf(ct, cell=CELL, quantize=quantize, free_source=True)
+    assert torch.equal(ct, torch.from_numpy(x.T))
+    for a, b in zip(off, on):
+        assert a == b if isinstance(a, int) else (a is None and b is None) or torch.equal(a, b)
+    ji = J.build_ivf(jnp.asarray(x.T), cell=CELL, quantize=quantize, free_source=True)
+    assert np.array_equal(np.asarray(ji.orig_ids), on.orig_ids.numpy())
+    np.testing.assert_allclose(np.asarray(ji.centroids), on.centroids.numpy(), rtol=0, atol=1e-6)
+    assert np.array_equal(np.asarray(ji.cells), on.cells.numpy())
+    if quantize:
+        assert np.array_equal(np.asarray(ji.scales), on.scales.numpy())
+
+
 def _records(n):
     return [IndexedChunk(id=f"c{i}", text=f"chunk {i}", period="Q1_FY2024", chunk_type="x")
             for i in range(n)]
