@@ -186,11 +186,22 @@ Phases (any failure exits nonzero, and no phase carries on past one):
    layer updated, and the residual-MLP pipeline (L = 8, d = 384, M = 8, B =
    64, pp 2 and 4) against sequential_forward; (g) case (b) again through a
    one-rank NCCL process group, equal to the in-process results; (h)
-   dryrun_multichip(4).
+   dryrun_multichip(4), stages 1-6 (stage 1: the dp x tp step at (2, 2));
+   (i) the dp x tp InfoNCE step (parallel/minilm_tp.py) of the committed
+   domain encoder on the trainer's first batch (256 pairs, 64 + 192
+   tokens): f32 at (2, 2) and (1, 4) against the single-device step (loss
+   and accuracy within 1e-5, post-step global norm within 1e-5 relative),
+   bf16 step times (median of 10), idle share (torch.profiler) and peak
+   memory at (1, 1), (2, 2) and (1, 4); then 10 bf16 steps at (2, 2),
+   gathered, saved with save_encoder_checkpoint and served over 65,536
+   filings, the fused kernel's counter at 0 just before the requests and
+   read just after (the dp_tp_launches of row 1), fused hits equal to the
+   dense tier's.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 kernel table as JSON (rows 1-3 also carry the hashed phase's launches, row 1 the
-minilm and train phases', rows 1, 2 and first_k the parallel phase's).
+minilm and train phases' and phase 10 (i)'s, rows 1, 2 and first_k the parallel
+phase's).
 """
 
 from __future__ import annotations
@@ -3295,6 +3306,168 @@ def par_process_group(torch, topk, dev, scale) -> int:
     return made
 
 
+DP_TP_CHECKS = ((2, 2), (1, 4))  # f32 against the single-device step
+DP_TP_TIMED = ((1, 1), (2, 2), (1, 4))  # bf16, the trainer's dtype
+DP_TP_STEPS = 10
+N_DP_TP = 65_536  # the served index: FUSED_MIN_N columns, so row 1 runs
+
+
+def par_dp_tp(torch, topk, here: str, dev) -> dict:
+    """(i) The dp x tp InfoNCE step (parallel/minilm_tp.py) of the committed
+    domain encoder at full width, on the trainer's first batch (256 pairs, 64 and
+    192 tokens): f32 at (2, 2) and (1, 4) against the single-device step
+    (loss and accuracy 1e-5, post-step global norm 1e-5 relative); bf16
+    step times, idle share and peak memory at (1, 1), (2, 2), (1, 4); then
+    10 bf16 steps at (2, 2) saved as a checkpoint and served over 65,536
+    filings, row 1's counter at 0 just before the requests and read just
+    after, hits equal to the dense tier's."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+
+    from ragfin_tpu_torch.config.settings import Settings
+    from ragfin_tpu_torch.eval.distractors import generate_distractors
+    from ragfin_tpu_torch.models import domain_encoder, pairgen
+    from ragfin_tpu_torch.models.minilm import MiniLMEncoder, minilm_apply, params_from_flax
+    from ragfin_tpu_torch.models.training import AdamW, global_norm, init_train_state, make_train_step
+    from ragfin_tpu_torch.parallel import minilm_tp
+    from ragfin_tpu_torch.parallel.mesh import make_mesh
+    from ragfin_tpu_torch.serving.engine import RagFinEngine
+
+    t0 = time.perf_counter()
+    flax_params, tok, cfg, meta = domain_encoder.load_encoder_checkpoint(
+        os.path.join(here, "checkpoints", "domain_encoder"))
+    params = params_from_flax(flax_params)
+    rng = np.random.default_rng(0)  # the trainer's seed: its first batch
+
+    def pair_batch():
+        queries, docs = pairgen.pair_batch(rng, DOMAIN_BATCH)
+        out = {}
+        for side, texts, length in (("query", queries, DOMAIN_Q), ("doc", docs, DOMAIN_D)):
+            ids, mask = domain_encoder._fixed_len(*tok.encode_batch(texts), length)
+            out[side] = {"input_ids": torch.from_numpy(ids.astype(np.int64)).to(dev),
+                         "attention_mask": torch.from_numpy(mask.astype(np.int64)).to(dev)}
+        return out
+
+    batch = pair_batch()
+    # The trainer's optimizer at a constant rate (its schedule's first rate is 0).
+    opt = AdamW(3e-4, weight_decay=0.01, max_grad_norm=1.0)
+
+    def tp_state(c, dp, tp):
+        mesh = make_mesh(("dp", "tp"), (dp, tp), devices=[dev] * (dp * tp))
+        step = minilm_tp.make_minilm_dp_tp_train_step(mesh, c, opt)
+        return step, init_train_state(minilm_tp.place_minilm_tp_params(params, mesh, c), opt)
+
+    # ---- f32 parity against the single-device step -------------------------
+    c32 = dataclasses.replace(cfg, dtype=torch.float32)
+    model = MiniLMEncoder(c32)
+    model.load_state_dict(params)
+    ref_state, ref = make_train_step(minilm_apply, opt)(init_train_state(model.to(dev).train(), opt), batch)
+    ref_norm = float(global_norm(ref_state.tensors()))
+    del model, ref_state
+    parity = []
+    for dp, tp in DP_TP_CHECKS:
+        step, state = tp_state(c32, dp, tp)
+        state, got = step(state, batch)
+        errs = {key: abs(float(got[key]) - float(ref[key])) for key in ("loss", "accuracy")}
+        errs["norm_rel"] = abs(float(minilm_tp.global_norm(state.params)) - ref_norm) / ref_norm
+        if errs["loss"] > F32_TOL or errs["accuracy"] > F32_TOL or errs["norm_rel"] > F32_TOL:
+            raise AssertionError(f"dp x tp ({dp}, {tp}) f32 step against the single-device step: {errs}, "
+                                 f"loss {float(got['loss'])} / {float(ref['loss'])}")
+        parity.append(f"({dp}, {tp}) loss err {errs['loss']:.2e}, accuracy err {errs['accuracy']:.2e}, "
+                      f"norm rel err {errs['norm_rel']:.2e}")
+        del state
+
+    # ---- bf16 step times, idle share, peak memory ---------------------------
+    times = {}
+    for dp, tp in DP_TP_TIMED:
+        step, state = tp_state(cfg, dp, tp)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        for _ in range(2):
+            step(state, batch)
+        runs = []
+        for _ in range(DP_TP_STEPS):
+            torch.cuda.synchronize()
+            s0 = time.perf_counter()
+            _, m = step(state, batch)
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - s0) * 1e3)
+        if not torch.isfinite(m["loss"]):
+            raise AssertionError(f"dp x tp ({dp}, {tp}) bf16 step: loss {float(m['loss'])}")
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+        busy, wall = step_profile(torch, f"parallel (i) dp x tp ({dp}, {tp}) bf16", step, state, batch, 3)
+        ms = statistics.median(runs)
+        # The profiler slows the host: idle against the unprofiled median too.
+        times[(dp, tp)] = {"ms": ms, "busy_ms": busy, "idle": 1 - busy / ms, "idle_profiled": 1 - busy / wall,
+                           "peak_gib": peak}
+        del state
+
+    # ---- 10 bf16 steps at (2, 2), saved and served --------------------------
+    step, state = tp_state(cfg, 2, 2)
+    losses = []
+    for _ in range(DP_TP_STEPS):
+        state, m = step(state, pair_batch())
+        losses.append(float(m["loss"]))
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"dp x tp (2, 2) bf16 training losses {losses}")
+    trained = minilm_tp.gather_minilm_tp_params(state.params, cfg)
+    del state
+    with tempfile.TemporaryDirectory(prefix="ragfin_dp_tp_") as work:
+        ckpt = domain_encoder.save_encoder_checkpoint(
+            os.path.join(work, "domain_encoder"), trained, tok.vocab, cfg,
+            {**meta, "dp_tp_steps": DP_TP_STEPS})
+        pool = generate_distractors(int(N_DP_TP * 1.16), seed=SEED + 7)
+        chunks = [c for c in pool if c.company != "ICICI Bank"][:N_DP_TP]
+        b0 = time.perf_counter()
+        engine = RagFinEngine(settings=Settings(embed_backend="trained", trained_checkpoint=ckpt, index_dir=""),
+                              chunks=chunks)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - b0
+    try:
+        index = engine.vector_index
+        if index.n != N_DP_TP or not index.matrix_t.is_cuda or index.embedder.checkpoint != ckpt:
+            raise AssertionError(f"unexpected dp x tp engine {index.stats()}")
+        engine.warmup()
+        _, unscoped = questions(chunks)
+        rag = engine.vector_rag
+        rag.search(unscoped[0], top_k=3)
+        torch.cuda.synchronize()
+        # ---- the driven run: counter 0 just before, read just after -------
+        topk.cosine_topk_fused.launches = 0
+        served = {q: rag.search(q, top_k=3) for q in unscoped}
+        torch.cuda.synchronize()
+        launches = topk.cosine_topk_fused.launches
+        # ---------------------------------------------------------------------
+        bad, wide = [], rag._detection_fetch(3)
+        with uncounted(topk.cosine_topk_fused):
+            for q in unscoped:
+                fused, dense = ([h.to_dict(False) for h in rag._searcher.search_texts([q], top_k=wide, method=m)[0]]
+                                for m in ("auto", "dense"))
+                # Served hits came from batched encodes (see the main path): BATCH_TOL.
+                if not (hits_agree(dense, fused, F32_TOL) and hits_agree(fused[:3], served[q], BATCH_TOL)):
+                    bad.append(q)
+    finally:
+        engine.close()
+    if launches < len(unscoped) or not all(served.values()) or bad:
+        raise AssertionError(f"dp x tp checkpoint served: {launches} launches for {len(unscoped)} requests, "
+                             f"hits differ from the dense tier for {bad}")
+    seconds = time.perf_counter() - t0
+    print(f"parallel (i) dp x tp InfoNCE step, domain encoder ({cfg.num_layers} layers, hidden "
+          f"{cfg.hidden_size}, vocab {cfg.vocab_size}, FFN {cfg.intermediate_size}), {DOMAIN_BATCH} pairs of "
+          f"{DOMAIN_Q} + {DOMAIN_D} tokens: f32 against the single-device step {'; '.join(parity)}; bf16 "
+          + "; ".join(f"({dp}, {tp}) {t['ms']:.3f} ms a step (median of {DP_TP_STEPS}), busy "
+                      f"{t['busy_ms']:.3f} ms, idle {t['idle']:.1%} ({t['idle_profiled']:.1%} under the "
+                      f"profiler), peak {t['peak_gib']:.2f} GiB"
+                      for (dp, tp), t in times.items())
+          + f"; (2, 2) x {DP_TP_STEPS} steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}, saved and served over "
+          f"{N_DP_TP} filings (built in {build_s:.1f} s): {len(unscoped)} requests, fused launches {launches}, "
+          f"hits equal to the dense tier; {seconds:.1f} s [{CARD}]", flush=True)
+    return {"launches": launches, "times": times, "seconds": seconds}
+
+
 def parallel_phase(torch, topk, graph_index, ivf, here, main_in, graph, ivf_in) -> dict:
     """Phase 10: the parallel layer on the card, counters at 0 just before
     (a) and read after (d)."""
@@ -3325,13 +3498,14 @@ def parallel_phase(torch, topk, graph_index, ivf, here, main_in, graph, ivf_in) 
     par_encoder(torch, here, dev, index.records)
     group_launches = par_process_group(torch, topk, dev, scale)
     dryrun_multichip(4)
-    print(f"parallel (h) dryrun_multichip(4) on the card: stages 2-6 passed", flush=True)
+    print(f"parallel (h) dryrun_multichip(4) on the card: stages 1-6 passed", flush=True)
+    dp_tp = par_dp_tp(torch, topk, here, dev)
     for w in wrappers:
         w.launches = 0
     seconds = time.perf_counter() - t0
     print(f"parallel phase: {seconds:.1f} s [{CARD}]", flush=True)
     return {"launches": launches, "group_launches": group_launches, "seconds": seconds,
-            "max_abs_err": scale["err"]}
+            "max_abs_err": scale["err"], "dp_tp_launches": dp_tp["launches"]}
 
 
 def parallel_inputs(torch, graph_index, ivf):
@@ -3482,12 +3656,13 @@ def main() -> int:
     })
     table[0]["minilm_launches"] = minilm_run["launches"]
     table[0]["train_launches"] = train["launches"]
+    table[0]["dp_tp_launches"] = par["dp_tp_launches"]
     for row in table:
         if row["name"] in ("fused_topk", "fused_topk_int8", "first_k"):
             row["parallel_launches"] = par["launches"][row["name"]]
     for row in table:
         if row["launches"] < 1 or any(row.get(key, 1) < 1 for key in (
-                "hashed_launches", "train_launches", "parallel_launches")):
+                "hashed_launches", "train_launches", "parallel_launches", "dp_tp_launches")):
             return fail(f"kernel {row['name']} was launched no time on its path")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -57,8 +57,14 @@ class MiniLMConfig:
 
 
 def _dense(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    y = F.linear(x, layer.weight.to(x.dtype))
-    return y + layer.bias.to(x.dtype)
+    return _linear(x, layer.weight, layer.bias)
+
+
+def _linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """``flax.linen.Dense``: the product in the activation dtype, then the
+    bias added in it."""
+    y = F.linear(x, weight.to(x.dtype))
+    return y + bias.to(x.dtype)
 
 
 def _layer_norm(norm: nn.LayerNorm, x: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
@@ -79,9 +85,16 @@ def embed_tokens(p: dict, input_ids: torch.Tensor, positions: torch.Tensor,
     activation dtype, from the ``state_dict`` entries ``p`` (the encoder's
     own, or the parallel stages'); ``positions [S]`` are the tokens' global
     positions."""
+    words = F.embedding(input_ids, p["word_embeddings.weight"].to(config.dtype))
+    return embed_rows(p, words, positions, config)
+
+
+def embed_rows(p: dict, words: torch.Tensor, positions: torch.Tensor, config: MiniLMConfig) -> torch.Tensor:
+    """The rest of :func:`embed_tokens` after the word lookup: position and
+    type rows added to the word rows ``[B, S, H]``, then the LayerNorm
+    (parallel/minilm_tp.py looks the words up by vocabulary shards)."""
     dt = config.dtype
-    x = F.embedding(input_ids, p["word_embeddings.weight"].to(dt))
-    x = x + F.embedding(positions, p["position_embeddings.weight"].to(dt))[None]
+    x = words + F.embedding(positions, p["position_embeddings.weight"].to(dt))[None]
     x = x + p["token_type_embeddings.weight"][0].to(dt)
     return _normalize(x, p["embeddings_norm.weight"], p["embeddings_norm.bias"], config.layer_norm_eps, dt)
 

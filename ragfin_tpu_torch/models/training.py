@@ -35,7 +35,7 @@ from torch import nn
 
 from .bag_encoder import bag_encode
 
-# (params, batch side) -> [B, D]; params is a tensor (the bag table) or a module.
+# (params, batch side) -> [B, D]; params as in TrainState below.
 EncoderApply = Callable[[Any, dict], torch.Tensor]
 Schedule = Callable[[int], float]
 
@@ -81,14 +81,25 @@ def warmup_cosine_decay_schedule(
 
 
 @torch.no_grad()
+def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
+    """optax.global_norm: the L2 norm of all the tensors together, in f32
+    on the first one's device (the tensors may lie on several). The sums
+    run in f64: torch's f32 norm on the CPU accumulates serially, 4e-4
+    relative off at 11.7M elements (the word table of 30,522 rows)."""
+    dev = tensors[0].device
+    norms = torch.stack([torch.linalg.vector_norm(t, dtype=torch.float64).to(dev) for t in tensors])
+    return torch.linalg.vector_norm(norms).float()
+
+
+@torch.no_grad()
 def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float) -> torch.Tensor:
     """optax.clip_by_global_norm in place: every gradient scaled by
     ``max_norm / norm`` when the global L2 norm reaches ``max_norm``.
     Returns the norm before clipping."""
-    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    norm = global_norm(grads)
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     for g in grads:
-        g.mul_(scale.to(g.dtype))
+        g.mul_(scale.to(g.device, g.dtype))
     return norm
 
 
@@ -117,13 +128,18 @@ class AdamW:
 # --- the step -------------------------------------------------------------------
 
 
+# A parameter set: the bag table, a module, or an encoder's entries as lists
+# of shards (parallel/minilm_tp.py).
+Params = Union[torch.Tensor, nn.Module, dict[str, list[torch.Tensor]]]
+
+
 @dataclasses.dataclass
 class TrainState:
-    """The parameters (a leaf tensor or a module), the torch optimizer over
-    them, its schedule (or None) and the number of updates taken. The step
-    updates them in place and returns the same object."""
+    """The parameters, the torch optimizer over them, its schedule (or
+    None) and the number of updates taken. The step updates them in place
+    and returns the same object."""
 
-    params: Union[torch.Tensor, nn.Module]
+    params: Params
     optimizer: torch.optim.Optimizer
     scheduler: Optional[torch.optim.lr_scheduler.LRScheduler]
     step: int = 0
@@ -131,14 +147,18 @@ class TrainState:
     def tensors(self) -> list[torch.Tensor]:
         if isinstance(self.params, nn.Module):
             return list(self.params.parameters())
+        if isinstance(self.params, dict):
+            return [t for shards in self.params.values() for t in shards]
         return [self.params]
 
 
-def init_train_state(params: Union[torch.Tensor, nn.Module], optimizer: AdamW) -> TrainState:
-    """A state over ``params``: a tensor becomes a leaf that requires grad
-    (a copy, so the caller's tensor is not trained in place); a module is
-    trained as it is."""
-    if not isinstance(params, nn.Module):
+def init_train_state(params: Params, optimizer: AdamW) -> TrainState:
+    """A state over ``params``: tensors (the table, or every shard of a
+    dict) become leaves that require grad (copies, so the caller's tensors
+    are not trained in place); a module is trained as it is."""
+    if isinstance(params, dict):
+        params = {k: [t.detach().clone().requires_grad_(True) for t in shards] for k, shards in params.items()}
+    elif not isinstance(params, nn.Module):
         params = params.detach().clone().requires_grad_(True)
     state = TrainState(params, None, None)
     state.optimizer, state.scheduler = optimizer.init(state.tensors())

@@ -1,10 +1,13 @@
 """A multi-device dryrun of the parallel layer at tiny shapes.
 
-Counterpart of ``__graft_entry__.py:dryrun_multichip`` (stages 2-6; its
-stage 1, a dp x tp GSPMD training step, has no counterpart yet). Every
+Counterpart of ``__graft_entry__.py:dryrun_multichip`` (stages 1-6). Every
 stage runs a parallel program over an ``n_devices`` mesh and asserts it
 against the single-device path:
 
+1. one InfoNCE training step of the MiniLM encoder (real widths, 2 layers,
+   f32) over a dp x tp mesh (:mod:`.minilm_tp`) gives the loss and accuracy
+   of the single-device step within 1e-5, and the parameters' global norm
+   after it within 1e-5 relative;
 2. the pipeline-parallel (pp = 2, with dp over the rest) MiniLM forward
    equals the encoder, and one pp train step gives a finite loss;
 3. the corpus-sharded exact top-k retrieves each query's own column;
@@ -30,11 +33,13 @@ from ..utils.device import DeviceLike, resolve_device
 
 def dryrun_multichip(n_devices: int, devices: Optional[Sequence[DeviceLike]] = None) -> None:
     from ..index.graph_index import METRIC, GraphIndex
-    from ..models.minilm import MiniLMConfig, MiniLMEncoder, init_params
+    from ..models.minilm import MiniLMConfig, MiniLMEncoder, init_params, minilm_apply
+    from ..models.training import AdamW, global_norm as module_norm, init_train_state, make_train_step
     from ..ops.fusion import fuse_results
     from ..ops.ivf import build_ivf
-    from .mesh import make_mesh, shard
+    from .mesh import factor_mesh_shape, make_mesh, shard
     from .minilm_pipeline import make_minilm_pp_forward, make_minilm_pp_train_step, place_minilm_pp_params
+    from .minilm_tp import global_norm, make_minilm_dp_tp_train_step, place_minilm_tp_params
     from .minilm_sp import make_minilm_sp_forward
     from .sharded import sharded_cosine_topk
     from .sharded_graph import ShardedGraphIndex
@@ -58,6 +63,30 @@ def dryrun_multichip(n_devices: int, devices: Optional[Sequence[DeviceLike]] = N
         model = MiniLMEncoder(cfg).to(first)
         model.load_state_dict(params)
         return model.eval()
+
+    # ---- 1. full contrastive training step, dp x tp sharded --------------
+    dp, tp = factor_mesh_shape(n_devices, 2)
+    mesh = make_mesh(("dp", "tp"), (dp, tp), devices=devices)
+    config = MiniLMConfig(num_layers=2, dtype=torch.float32)  # tiny depth, real widths
+    params = init_params(config, seed=0)
+    optimizer = AdamW(1e-4)  # optax.adamw(1e-4)
+    batch_size, seq = 2 * dp, 16
+    batch = {side: {"input_ids": torch.from_numpy(rng.integers(0, config.vocab_size, (batch_size, seq))).to(first),
+                    "attention_mask": torch.ones((batch_size, seq), dtype=torch.int64, device=first)}
+             for side in ("query", "doc")}
+    state, metrics = make_minilm_dp_tp_train_step(mesh, config, optimizer)(
+        init_train_state(place_minilm_tp_params(params, mesh, config), optimizer), batch)
+    check(torch.isfinite(metrics["loss"]), "training step produced a non-finite loss")
+    # The single-device replay of the same batch.
+    ref_state, ref_metrics = make_train_step(minilm_apply, optimizer)(
+        init_train_state(encoder(config, params).train(), optimizer), batch)
+    for key in ("loss", "accuracy"):
+        check(abs(float(metrics[key]) - float(ref_metrics[key])) <= 1e-5,
+              f"dp x tp {key} {float(metrics[key])} diverged from the single-device {float(ref_metrics[key])}")
+    norm, ref_norm = float(global_norm(state.params)), float(module_norm(ref_state.tensors()))
+    check(abs(norm - ref_norm) <= 1e-5 * abs(ref_norm),
+          f"dp x tp post-step parameter norm {norm} diverged from the single-device {ref_norm}")
+    del state, ref_state
 
     # ---- 2. pipeline-parallel MiniLM train step over a pp(+dp) mesh ------
     if n_devices >= 2 and n_devices % 2 == 0:
