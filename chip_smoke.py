@@ -6,6 +6,7 @@
     python3 chip_smoke.py --graph    # phases 1, 4 and 5 only (build, first-k, graph store)
     python3 chip_smoke.py --sweep    # also the IVF and int8 grid-rule and first-k span sweeps
     python3 chip_smoke.py --parallel # phases 1 and 10 only (build, the parallel layer)
+    python3 chip_smoke.py --drivers  # phases 1 and 11 only (build, the drivers outside the package)
 
 Phases (any failure exits nonzero, and no phase carries on past one):
 
@@ -197,11 +198,37 @@ Phases (any failure exits nonzero, and no phase carries on past one):
    filings, the fused kernel's counter at 0 just before the requests and
    read just after (the dp_tp_launches of row 1), fused hits equal to the
    dense tier's.
+11. The drivers outside the package, after phase 9. (a) Concurrent load
+   (scripts/serving_concurrent_torch.py's stack and measuring loop) at the
+   end of phase 3, on its engine (131,072 filings of seven banks, the
+   trained encoder, f32, batcher on; with --drivers that engine is built
+   for it), with the vector MCP server and adapter launched over it as the
+   script launches them. Phase 8's engine comes from a chunk snapshot, which
+   keeps no company (the reference's snapshot shape), so every /search
+   question there is scoped to the latest fiscal year and never reaches the
+   unscoped search; phase 3's corpus leaves out the default company, so a
+   question that names no bank does. A warm pass of phase 3's 24 questions
+   one at a time over HTTP, every hit equal to the engine object's outside
+   1e-5 tie bands; then
+   C = 8 and 32 clients for 10 s each through the vector adapter, the fused
+   counters at 0 just before a level and read just after, one line per
+   level (QPS, p50/p95, batch mean/p50/p90, the card); a request that errs
+   fails. (b) scripts/trained_eval_torch.py (ARMS=pipeline,raw,ivf) and
+   scripts/distractor_eval_torch.py (ARMS=base,ivf) at DISTRACTOR_N = 65,536
+   (+ 16 generated ICICI chunks; N >= FUSED_MIN_N, so the raw arms run
+   row 1), then the
+   trained eval's pipeline and raw arms at TRAINED_DTYPE=int8 (row 2), all
+   in this process and into the work directory, with rows 1-3's counters at
+   0 just before and read just after: each arm's recall@k printed, the IVF
+   agreement by nprobe, and at full probe the trained IVF equal to the
+   host-exact oracle. (c) examples/demo_torch.py as a subprocess, exit 0.
+   (d) parallel/dryrun.py:entry()'s bf16 forward on the card against the f32
+   forward on the CPU from the same init_params, cosine >= 0.999 per row.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
-kernel table as JSON (rows 1-3 also carry the hashed phase's launches, row 1 the
-minilm and train phases' and phase 10 (i)'s, rows 1, 2 and first_k the parallel
-phase's).
+kernel table as JSON (rows 1-3 also carry the hashed phase's launches and
+phase 11's eval launches, row 1 the minilm and train phases', phase 10 (i)'s
+and phase 11 (a)'s, rows 1, 2 and first_k the parallel phase's).
 """
 
 from __future__ import annotations
@@ -1576,7 +1603,7 @@ def int8_index(index, chunks):
     return idx8
 
 
-def main_path_phase(torch, topk) -> dict:
+def main_path_phase(torch, topk, here: str) -> dict:
     import numpy as np
 
     from ragfin_tpu_torch.config.settings import Settings
@@ -1719,12 +1746,14 @@ def main_path_phase(torch, topk) -> dict:
     print(f"int8 index: {len(request_set)} requests, int8 kernel launches {launches8}, "
           f"hits equal to the f32 engine's", flush=True)
     engine8.close()
+    concurrent = concurrent_phase(torch, topk, engine, chunks, here)
     engine.close()
     launches["fused_topk_int8"] = launches8
     launches["first_k"] = hybrid_launches["first_k"]
     launches["ivf_topk"] = ivf_launches
     return {"launches": launches, "p50_ms": p50, "p50_alone_ms": p50_alone,
-            "ivf_engine_err": ivf_err, "inputs": (index, idx8, scoped + unscoped)}
+            "ivf_engine_err": ivf_err, "inputs": (index, idx8, scoped + unscoped),
+            "concurrent": concurrent}
 
 
 # --- phase 3b: integrity-weighted retrieval -----------------------------------
@@ -2901,6 +2930,210 @@ def cli_phase(torch, work_dir: str, here: str) -> dict:
     return {"launches": launches, "bench": result, "stages": stages}
 
 
+# --- phase 11: the drivers outside the package --------------------------------
+
+CONC_CLIENTS = (8, 32)
+CONC_SECONDS = 10.0
+N_EVAL = 65_536  # + 16 real chunks: at FUSED_MIN_N, so the unscoped arms run row 1
+ENTRY_COS = 0.999  # entry()'s bf16 forward on the card against the f32 forward on the CPU
+
+
+def drivers_module(here: str, name: str):
+    """A driver script of scripts/ as a module (they read their settings
+    from the environment when main() runs)."""
+    import importlib
+
+    scripts = os.path.join(here, "scripts")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
+    return importlib.import_module(name)
+
+
+def concurrent_phase(torch, topk, engine, chunks, here: str) -> dict:
+    """(a) scripts/serving_concurrent_torch.py's stack and measuring loop on
+    phase 3's engine: the vector MCP server and the vector adapter on
+    ephemeral ports, as the script launches them; a warm pass of the
+    questions one at a time over HTTP, each hit held against the engine
+    object's (0 mismatches outside 1e-5 tie bands); then C clients for
+    CONC_SECONDS each, the fused counters at 0 just before a level and read
+    just after."""
+    import http.client
+
+    from ragfin_tpu_torch.serving.main import launch
+
+    sc = drivers_module(here, "serving_concurrent_torch")
+    if engine.batcher is None:
+        raise AssertionError("the engine runs without its batcher")
+    scoped, unscoped = questions(chunks)
+    qs = scoped + unscoped
+    t0 = time.perf_counter()
+    servers = launch(services=("vector_mcp", "vector_adapter"),
+                     ports={"vector_mcp": 0, "vector_adapter": 0}, engine=engine)
+    port = servers["vector_adapter"].port
+    url = f"http://127.0.0.1:{port}/search"
+    levels = []
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        mismatched = []
+        try:
+            for q in qs:
+                got = sc.post(conn, "/search", q)["results"]
+                if not hits_agree(engine.vector_rag.search(q, 3), got, F32_TOL):
+                    mismatched.append(q)
+        finally:
+            conn.close()
+        if mismatched:
+            raise AssertionError(f"hits over HTTP differ from the engine's for {mismatched}")
+        print(f"concurrent: warm pass of {len(qs)} questions over HTTP (vector adapter, MCP "
+              f"client, MCP server, batcher) in {time.perf_counter() - t0:.1f} s, every hit equal "
+              f"to the engine object's", flush=True)
+        for c in CONC_CLIENTS:
+            topk.cosine_topk_fused.launches = 0
+            r = sc.level(url, qs, c, CONC_SECONDS)
+            torch.cuda.synchronize()
+            r["launches"] = topk.cosine_topk_fused.launches
+            if r["errors"] or not r["done"]:
+                raise AssertionError(f"C={c}: {r['errors']} of {r['done'] + r['errors']} requests "
+                                     f"failed; first: {r['first_error']}")
+            if r["launches"] < 1:
+                raise AssertionError(f"C={c}: the load never launched the fused f32 kernel")
+            print(sc.line(N_MAIN, r, " backend=trained dtype=float32", CARD)
+                  + f"; fused launches {r['launches']} for {r['done']} requests", flush=True)
+            levels.append(r)
+    finally:
+        for srv in servers.values():
+            srv.stop()
+    return {"levels": levels, "launches": sum(r["launches"] for r in levels),
+            "seconds": time.perf_counter() - t0}
+
+
+def eval_phase(torch, topk, ivf, here: str, work_dir: str) -> dict:
+    """(b) scripts/trained_eval_torch.py (ARMS=pipeline,raw,ivf: its
+    counterparts of the base and IVF groups) and
+    scripts/distractor_eval_torch.py (ARMS=base,ivf) at DISTRACTOR_N =
+    N_EVAL, then the trained eval's pipeline and raw arms again at
+    TRAINED_DTYPE=int8, in this process, writing into the work directory;
+    rows 1-3's counters at 0 just before and read just after."""
+    te = drivers_module(here, "trained_eval_torch")
+    de = drivers_module(here, "distractor_eval_torch")
+    out_dir = os.path.join(work_dir, "eval")
+    keys = ("DISTRACTOR_N", "EVAL_OUT", "ARMS", "TRAINED_DTYPE", "REFERENCE_ROOT", "RAGFIN_DEVICE",
+            "SLAB", "ENCODE_ONLY")
+    saved = {k: os.environ.get(k) for k in keys}
+    for k in keys:
+        os.environ.pop(k, None)
+    os.environ.update({"DISTRACTOR_N": str(N_EVAL), "EVAL_OUT": out_dir})
+    topk.cosine_topk_fused.launches = 0
+    topk.cosine_topk_fused_int8.launches = 0
+    ivf.pruned_topk.launches = 0
+    reports = {}
+    try:
+        os.environ.update({"ARMS": "pipeline,raw,ivf", "TRAINED_DTYPE": "f32"})
+        reports["trained f32"] = te.main()
+        f32_json = os.path.join(out_dir, f"trained_eval_torch_{N_EVAL}.json")
+        os.replace(f32_json, f32_json.replace(".json", "_f32.json"))  # no merge into the int8 run
+        os.environ["ARMS"] = "base,ivf"
+        reports["distractor"] = de.main()
+        os.environ.update({"ARMS": "pipeline,raw", "TRAINED_DTYPE": "int8"})
+        reports["trained int8"] = te.main()
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None) if v is None else os.environ.__setitem__(k, v)
+    torch.cuda.synchronize()
+    launches = {"fused_topk": topk.cosine_topk_fused.launches,
+                "fused_topk_int8": topk.cosine_topk_fused_int8.launches,
+                "ivf_topk": ivf.pruned_topk.launches}
+    if min(launches.values()) < 1:
+        raise AssertionError(f"the evals did not reach every kernel: {launches}")
+    for label, rep in reports.items():
+        if rep.get("n_chunks") != N_EVAL + 16 or not rep["device"].startswith("cuda"):
+            raise AssertionError(f"{label}: {rep.get('n_chunks')} chunks on {rep.get('device')}")
+        arms = {name: r for name, r in rep["results"].items() if "retrieval_recall" in r}
+        if not arms:
+            raise AssertionError(f"{label}: no arm ran")
+        for name, r in arms.items():
+            recall = r["retrieval_recall"]["mean"]
+            if not 0.0 <= recall <= 1.0 or r["questions_evaluated"] < 1:
+                raise AssertionError(f"{label} {name}: {r}")
+        print(f"eval {label} (N = {N_EVAL} + 16, {rep['questions']}): " + "; ".join(
+            f"{name} recall@{r['k']} {r['retrieval_recall']['mean']:.4f}"
+            for name, r in arms.items()), flush=True)
+    trained_ivf = reports["trained f32"]["results"].get("ivf_vs_exact_overlap@10_trained")
+    hashed_ivf = reports["distractor"]["results"].get("ivf_vs_exact_overlap@10")
+    if not trained_ivf or not hashed_ivf:
+        raise AssertionError("an IVF agreement arm did not finish")
+    full = trained_ivf["agreement_by_nprobe"][trained_ivf["n_cells"]]
+    if full["tie_aware"] != 1.0:
+        raise AssertionError(f"IVF at full probe disagrees with the host-exact oracle: {full}")
+    print(f"eval IVF agreement@10 by nprobe ({trained_ivf['n_cells']} cells): trained f32 "
+          f"{json.dumps(trained_ivf['agreement_by_nprobe'])}; hashed (against the dense tier) "
+          f"{json.dumps(hashed_ivf['agreement_by_nprobe'])}; launches {launches}", flush=True)
+    return {"launches": launches, "reports": reports}
+
+
+def demo_phase(here: str) -> float:
+    """(c) examples/demo_torch.py as a user runs it; it must exit 0."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("RAGFIN_")}
+    env.pop("REFERENCE_ROOT", None)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join(here, "examples", "demo_torch.py")],
+                          cwd=here, env=env, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0 or "recall@10 = " not in proc.stdout:
+        raise AssertionError(f"demo exited {proc.returncode}: {proc.stderr[-800:]}")
+    recall = proc.stdout.split("recall@10 = ")[1].split()[0]
+    print(f"demo: examples/demo_torch.py exit 0 in {time.perf_counter() - t0:.1f} s "
+          f"(six steps, recall@10 {recall} on the holdout phrasings)", flush=True)
+    return float(recall)
+
+
+def entry_phase(torch) -> float:
+    """(d) parallel/dryrun.py:entry()'s forward on the card (bf16) against
+    the same forward in f32 on the CPU from the same init_params."""
+    from ragfin_tpu_torch.models.minilm import MiniLMConfig
+    from ragfin_tpu_torch.parallel.dryrun import entry
+
+    fn, args = entry()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    fn32, args32 = entry(config=MiniLMConfig(dtype=torch.float32), device="cpu")
+    ref = fn32(*args32)
+    if not args[1].is_cuda or tuple(out.shape) != (8, 384) or not torch.isfinite(out).all():
+        raise AssertionError(f"entry forward: {tuple(out.shape)} on {out.device}")
+    if any(not torch.equal(args[0][k].cpu(), args32[0][k]) for k in args32[0]):
+        raise AssertionError("entry's parameters differ between the card and the CPU")
+    cos = torch.nn.functional.cosine_similarity(out.float().cpu(), ref, dim=1)
+    if float(cos.min()) < ENTRY_COS:
+        raise AssertionError(f"entry forward: cosine {cos.tolist()} below {ENTRY_COS}")
+    print(f"entry: MiniLMConfig() forward on 8 x 32 ids on the card, bf16 against f32 on the "
+          f"CPU: min cosine {float(cos.min()):.6f} (limit {ENTRY_COS})", flush=True)
+    return float(cos.min())
+
+
+def drivers_phase(torch, topk, ivf, here: str, work_dir: str, concurrent=None) -> dict:
+    """Phase 11. (a) ran inside phase 3 when ``concurrent`` is given; alone
+    (--drivers) it builds phase 3's engine here."""
+    t0 = time.perf_counter()
+    alone = concurrent is None
+    if alone:
+        chunks = main_chunks()
+        engine = main_engine(chunks)
+        torch.cuda.synchronize()
+        print(f"drivers: phase 3's engine over {len(chunks)} chunks up in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        try:
+            concurrent = concurrent_phase(torch, topk, engine, chunks, here)
+        finally:
+            engine.close()
+    evals = eval_phase(torch, topk, ivf, here, work_dir)
+    demo = demo_phase(here)
+    cos = entry_phase(torch)
+    took = time.perf_counter() - t0 + (0.0 if alone else concurrent["seconds"])
+    print(f"drivers: phase 11 took {took:.1f} s, with (a)'s {concurrent['seconds']:.1f} s "
+          f"{'here' if alone else 'inside phase 3'}", flush=True)
+    return {"concurrent": concurrent, "evals": evals, "demo_recall": demo, "entry_cos": cos,
+            "seconds": took}
+
+
 # --- phase 10: the parallel layer ----------------------------------------------
 
 N_SCALE = 4_000_037  # not a multiple of any tile
@@ -3532,6 +3765,9 @@ def main() -> int:
                     help="build, first-k alone and the graph store at scale (phases 1, 4 and 5)")
     ap.add_argument("--parallel", action="store_true",
                     help="build, then the parallel layer alone (phases 1 and 10), with its own inputs")
+    ap.add_argument("--drivers", action="store_true",
+                    help="build, then the drivers outside the package alone (phases 1 and 11), "
+                         "with phase 3's engine built for the concurrent load")
     ap.add_argument("--sweep", action="store_true",
                     help="also time the IVF wrapper's grid rule against fixed splits (phase 6), "
                          "the int8 wrapper's rows per block against 64 (phase 2) and "
@@ -3566,6 +3802,12 @@ def main() -> int:
     if args.parallel:
         parallel_phase(torch, topk, graph_index, ivf, here, *parallel_inputs(torch, graph_index, ivf))
         return 0
+    if args.drivers:
+        import tempfile
+
+        with tempfile.TemporaryDirectory(prefix="ragfin_smoke_") as work_dir:
+            drivers_phase(torch, topk, ivf, here, work_dir)
+        return 0
 
     first_k = first_k_phase(torch, graph_index, sweep=args.sweep)
     if args.graph:
@@ -3577,7 +3819,7 @@ def main() -> int:
     if args.kernels:
         return 0
     graph = graph_scale_phase(torch, graph_index)
-    main_path = main_path_phase(torch, topk)
+    main_path = main_path_phase(torch, topk, here)
     par = parallel_phase(torch, topk, graph_index, ivf, here, main_path.pop("inputs"), graph,
                          ivf_alone.pop("inputs"))
     del graph
@@ -3590,6 +3832,7 @@ def main() -> int:
         train = train_phase(torch, topk, here, work_dir)
         served = served_phase(torch, topk, graph_index, work_dir)
         cli_run = cli_phase(torch, work_dir, here)
+        drivers = drivers_phase(torch, topk, ivf, here, work_dir, main_path["concurrent"])
     print(f"request p50: over the wire {served['wire_p50_ms']:.2f} ms, in process "
           f"{served['in_process_p50_ms']:.2f} ms (served engine), main path one at a time "
           f"{main_path['p50_alone_ms']:.2f} ms", flush=True)
@@ -3657,12 +3900,16 @@ def main() -> int:
     table[0]["minilm_launches"] = minilm_run["launches"]
     table[0]["train_launches"] = train["launches"]
     table[0]["dp_tp_launches"] = par["dp_tp_launches"]
+    table[0]["concurrent_launches"] = drivers["concurrent"]["launches"]
+    for row in table[:3]:
+        row["eval_launches"] = drivers["evals"]["launches"][row["name"]]
     for row in table:
         if row["name"] in ("fused_topk", "fused_topk_int8", "first_k"):
             row["parallel_launches"] = par["launches"][row["name"]]
     for row in table:
         if row["launches"] < 1 or any(row.get(key, 1) < 1 for key in (
-                "hashed_launches", "train_launches", "parallel_launches", "dp_tp_launches")):
+                "hashed_launches", "train_launches", "parallel_launches", "dp_tp_launches",
+                "concurrent_launches", "eval_launches")):
             return fail(f"kernel {row['name']} was launched no time on its path")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

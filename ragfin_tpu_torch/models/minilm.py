@@ -56,6 +56,22 @@ class MiniLMConfig:
         return self.hidden_size // self.num_heads
 
 
+# Encoder family presets: the reference's embedder is MINILM_L6
+# (all-MiniLM-L6-v2); the others are the common sentence-encoder variants a
+# user might swap in.
+MINILM_L6 = MiniLMConfig()
+MINILM_L12 = MiniLMConfig(num_layers=12)
+BGE_SMALL = MiniLMConfig(num_layers=12, pooling="cls")
+BERT_BASE = MiniLMConfig(hidden_size=768, num_layers=12, intermediate_size=3072, pooling="cls")
+
+ENCODER_PRESETS = {
+    "minilm-l6": MINILM_L6,
+    "minilm-l12": MINILM_L12,
+    "bge-small": BGE_SMALL,
+    "bert-base": BERT_BASE,
+}
+
+
 def _dense(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     return _linear(x, layer.weight, layer.bias)
 
@@ -244,12 +260,18 @@ def minilm_apply(model: MiniLMEncoder, side: dict) -> torch.Tensor:
     return model(side["input_ids"], side["attention_mask"])
 
 
-def init_params(config: MiniLMConfig = MiniLMConfig(), seed: int = 0) -> dict[str, torch.Tensor]:
+def init_params(
+    config: MiniLMConfig = MiniLMConfig(), seed: int = 0, seq_len: int = 16
+) -> dict[str, torch.Tensor]:
     """Seeded random :class:`MiniLMEncoder` ``state_dict`` with Flax's
     initialisers: Dense kernels truncated normal (2 sigma) of std
     1/sqrt(fan_in), embeddings normal of std 1/sqrt(hidden), biases 0,
     LayerNorm scales 1. Drawn from one ``torch.Generator``, in the order of
-    the module's parameters."""
+    the module's parameters.
+
+    ``seq_len`` is accepted for the JAX signature and ignored: Flax traces
+    the module on a ``[1, seq_len]`` input to find the shapes, and torch
+    needs no trace."""
     gen = torch.Generator().manual_seed(int(seed))
     sd = {}
     for name, shape in ((n, p.shape) for n, p in MiniLMEncoder(config).state_dict().items()):

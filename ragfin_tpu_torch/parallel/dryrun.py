@@ -1,6 +1,10 @@
-"""A multi-device dryrun of the parallel layer at tiny shapes.
+"""The single-device entry and a multi-device dryrun of the parallel layer.
 
-Counterpart of ``__graft_entry__.py:dryrun_multichip`` (stages 1-6). Every
+:func:`entry` is the counterpart of ``__graft_entry__.py:entry``: the
+flagship encoder's forward and its example arguments.
+
+:func:`dryrun_multichip` is the counterpart of
+``__graft_entry__.py:dryrun_multichip`` (stages 1-6) at tiny shapes. Every
 stage runs a parallel program over an ``n_devices`` mesh and asserts it
 against the single-device path:
 
@@ -29,6 +33,34 @@ import numpy as np
 import torch
 
 from ..utils.device import DeviceLike, resolve_device
+
+
+def entry(config=None, device: DeviceLike = None):
+    """``(fn, example_args)`` for one forward of the flagship model: the
+    MiniLM-class encoder at ``MiniLMConfig()`` (bf16 activations) with
+    ``init_params(config, seed=0, seq_len=32)``, on a batch of 8 x 32 token
+    ids drawn by ``np.random.default_rng(0)`` and a full attention mask.
+    ``fn(params, input_ids, attention_mask)`` runs the module with the given
+    ``state_dict`` (``torch.func.functional_call``), as the JAX entry's
+    ``model.apply(params, ...)`` does. The arguments lie on the card unless
+    ``device`` asks for the CPU; ``config`` overrides the model's (the f32
+    reference of a check)."""
+    from ..models.minilm import MiniLMConfig, MiniLMEncoder, init_params
+
+    dev = resolve_device(device)
+    config = config or MiniLMConfig()
+    model = MiniLMEncoder(config).to(dev).eval()
+    params = {name: t.to(dev) for name, t in init_params(config, seed=0, seq_len=32).items()}
+
+    def forward(params, input_ids, attention_mask):
+        with torch.inference_mode():
+            return torch.func.functional_call(model, params, (input_ids, attention_mask))
+
+    batch, seq = 8, 32
+    ids = np.random.default_rng(0).integers(0, config.vocab_size, (batch, seq))
+    input_ids = torch.from_numpy(ids.astype(np.int64)).to(dev)
+    attention_mask = torch.ones((batch, seq), dtype=torch.int32, device=dev)
+    return forward, (params, input_ids, attention_mask)
 
 
 def dryrun_multichip(n_devices: int, devices: Optional[Sequence[DeviceLike]] = None) -> None:

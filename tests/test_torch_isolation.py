@@ -1,9 +1,11 @@
 """The port stands alone: ``ragfin_tpu_torch``, ``chip_smoke.py``,
 ``bench_torch.py``, ``scripts/kernel_probe_torch.py``,
-``scripts/mosaic_bisect_torch.py`` and ``scripts/train_encoder_torch.py``
-import neither JAX (nor flax, optax or orbax, which import it) nor anything
-of the JAX package, and the port's entry points refuse to run on the CPU
-unless the caller asks for it."""
+``scripts/mosaic_bisect_torch.py``, ``scripts/train_encoder_torch.py``, the
+drivers ``scripts/serving_concurrent_torch.py``,
+``scripts/trained_eval_torch.py``, ``scripts/distractor_eval_torch.py`` and
+``examples/demo_torch.py`` import neither JAX (nor flax, optax or orbax,
+which import it) nor anything of the JAX package, and the port's entry
+points refuse to run on the CPU unless the caller asks for it."""
 
 import ast
 import os
@@ -16,6 +18,12 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "ragfin_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "ragfin_tpu")
+DRIVERS = (
+    os.path.join("scripts", "serving_concurrent_torch.py"),
+    os.path.join("scripts", "trained_eval_torch.py"),
+    os.path.join("scripts", "distractor_eval_torch.py"),
+    os.path.join("examples", "demo_torch.py"),
+)
 
 
 def _port_files():
@@ -25,6 +33,7 @@ def _port_files():
         os.path.join(ROOT, "scripts", "kernel_probe_torch.py"),
         os.path.join(ROOT, "scripts", "mosaic_bisect_torch.py"),
         os.path.join(ROOT, "scripts", "train_encoder_torch.py"),
+        *(os.path.join(ROOT, p) for p in DRIVERS),
     ]
     for dirpath, _, names in os.walk(PKG):
         out += [os.path.join(dirpath, n) for n in sorted(names) if n.endswith(".py")]
@@ -238,3 +247,21 @@ def test_launcher_runs_on_the_cpu_when_asked(tmp_path):
             proc.kill()
             proc.wait(timeout=30)
     assert proc.poll() is not None
+
+
+@pytest.mark.parametrize("script", DRIVERS)
+def test_drivers_refuse_the_cpu_unless_asked(script, tmp_path):
+    """Each driver exits nonzero with the "no CUDA device" error, writes no
+    result and prints no result line, where there is no card and
+    RAGFIN_DEVICE does not ask for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("RAGFIN_")}
+    env.update(PYTHONPATH=ROOT, EVAL_OUT=str(tmp_path), DISTRACTOR_N="100", SERVE_N="100",
+               DURATION="1", CLIENTS="1")
+    out = subprocess.run([sys.executable, os.path.join(ROOT, script)], cwd=str(tmp_path), env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
+    assert "recall" not in out.stdout and "QPS" not in out.stdout
+    assert not [p for p in os.listdir(tmp_path) if p.endswith((".json", ".log"))]
