@@ -208,20 +208,26 @@ Phases (any failure exits nonzero, and no phase carries on past one):
    question there is scoped to the latest fiscal year and never reaches the
    unscoped search; phase 3's corpus leaves out the default company, so a
    question that names no bank does. A warm pass of phase 3's 24 questions
-   one at a time over HTTP, every hit equal to the engine object's outside
-   1e-5 tie bands; then
+   one at a time over HTTP, every hit equal to the engine object's and to
+   the dense tier's (plain torch on the card) outside 1e-5 tie bands; then
    C = 8 and 32 clients for 10 s each through the vector adapter, the fused
-   counters at 0 just before a level and read just after, one line per
-   level (QPS, p50/p95, batch mean/p50/p90, the card); a request that errs
-   fails. (b) scripts/trained_eval_torch.py (ARMS=pipeline,raw,ivf) and
+   counters at 0 just before a level and read just after, every response
+   of the level held against the dense tier's (within 1e-3: served
+   questions are encoded in batches), one line per level (QPS, p50/p95,
+   batch mean/p50/p90, the card); a request that errs fails. (b)
+   scripts/trained_eval_torch.py (ARMS=pipeline,raw,ivf) and
    scripts/distractor_eval_torch.py (ARMS=base,ivf) at DISTRACTOR_N = 65,536
    (+ 16 generated ICICI chunks; N >= FUSED_MIN_N, so the raw arms run
-   row 1), then the
-   trained eval's pipeline and raw arms at TRAINED_DTYPE=int8 (row 2), all
-   in this process and into the work directory, with rows 1-3's counters at
-   0 just before and read just after: each arm's recall@k printed, the IVF
-   agreement by nprobe, and at full probe the trained IVF equal to the
-   host-exact oracle. (c) examples/demo_torch.py as a subprocess, exit 0.
+   row 1), then the trained eval's pipeline and raw arms at
+   TRAINED_DTYPE=int8 (row 2), all in this process, each dtype into its own
+   directory of the work directory, with rows 1-3's counters at 0 just
+   before and read just after. Each arm's searches run again on the
+   script's index, through the arm's route and with the dense tier (f32) or
+   the int8 kernel's plain version (int8) in the kernel's place: hits equal
+   outside 1e-5 tie bands, and the route's hits give the summary the script
+   reported. Each arm's recall@k printed, the IVF agreement by nprobe, and
+   at full probe the trained IVF equal to the host-exact oracle. (c)
+   examples/demo_torch.py as a subprocess, exit 0.
    (d) parallel/dryrun.py:entry()'s bf16 forward on the card against the f32
    forward on the CPU from the same init_params, cosine >= 0.999 per row.
 
@@ -2130,15 +2136,8 @@ def hashed_phase(torch, topk, work_dir: str) -> dict:
     # The int8 shortlist (16 wide, then the exact host re-score) need not
     # hold the f32 top 10 of a hashed corpus, so the int8 hits are held to
     # the same requests with the kernel's plain version in its place.
-    from ragfin_tpu_torch.index import vector_index as vi_mod
-
-    kernel8 = vi_mod.cosine_topk_fused_int8
-    vi_mod.cosine_topk_fused_int8 = (
-        lambda q_, c_, s_, k_, n_valid=None: topk.fused_topk_int8_plain(q_, c_, s_, k_, n_valid))
-    try:
+    with index_int8_plain(topk):
         plain8, plain_hybrid8 = drive(engine8)
-    finally:
-        vi_mod.cosine_topk_fused_int8 = kernel8
     diff8 = [q for q in asked if not hits_agree(plain8[q], served8[q], F32_TOL)
              or not hits_agree(plain_hybrid8[q]["chunks"], hybrid8[q]["chunks"], F32_TOL)]
     if diff8:
@@ -2952,44 +2951,38 @@ def drivers_module(here: str, name: str):
 def concurrent_phase(torch, topk, engine, chunks, here: str) -> dict:
     """(a) scripts/serving_concurrent_torch.py's stack and measuring loop on
     phase 3's engine: the vector MCP server and the vector adapter on
-    ephemeral ports, as the script launches them; a warm pass of the
-    questions one at a time over HTTP, each hit held against the engine
-    object's (0 mismatches outside 1e-5 tie bands); then C clients for
-    CONC_SECONDS each, the fused counters at 0 just before a level and read
-    just after."""
-    import http.client
-
-    from ragfin_tpu_torch.serving.main import launch
-
+    ephemeral ports (the script's serve()); the script's warm pass, each hit
+    held against the engine object's and against the dense tier's (plain
+    torch on the card), 0 mismatches outside 1e-5 tie bands; then C clients
+    for CONC_SECONDS each, the fused counters at 0 just before a level and
+    read just after, and every response of the level held against the
+    dense tier's (within BATCH_TOL: served questions are encoded in
+    batches)."""
     sc = drivers_module(here, "serving_concurrent_torch")
     if engine.batcher is None:
         raise AssertionError("the engine runs without its batcher")
     scoped, unscoped = questions(chunks)
     qs = scoped + unscoped
+    rag = engine.vector_rag
+    wide = rag._detection_fetch(3)
+    dense = {q: [h.to_dict(False) for h in rag._searcher.search_texts([q], top_k=wide, method="dense")[0][:3]]
+             for q in qs}
     t0 = time.perf_counter()
-    servers = launch(services=("vector_mcp", "vector_adapter"),
-                     ports={"vector_mcp": 0, "vector_adapter": 0}, engine=engine)
-    port = servers["vector_adapter"].port
-    url = f"http://127.0.0.1:{port}/search"
+    servers, url = sc.serve(engine)
     levels = []
     try:
-        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
-        mismatched = []
-        try:
-            for q in qs:
-                got = sc.post(conn, "/search", q)["results"]
-                if not hits_agree(engine.vector_rag.search(q, 3), got, F32_TOL):
-                    mismatched.append(q)
-        finally:
-            conn.close()
+        warm = sc.warm(url, qs)
+        mismatched = [q for q, got in warm.items()
+                      if not hits_agree(rag.search(q, 3), got, F32_TOL) or not hits_agree(dense[q], got, F32_TOL)]
         if mismatched:
-            raise AssertionError(f"hits over HTTP differ from the engine's for {mismatched}")
+            raise AssertionError(f"hits over HTTP differ from the engine's or the dense tier's for {mismatched}")
         print(f"concurrent: warm pass of {len(qs)} questions over HTTP (vector adapter, MCP "
               f"client, MCP server, batcher) in {time.perf_counter() - t0:.1f} s, every hit equal "
-              f"to the engine object's", flush=True)
+              f"to the engine object's and to the dense tier's", flush=True)
         for c in CONC_CLIENTS:
+            record: list = []
             topk.cosine_topk_fused.launches = 0
-            r = sc.level(url, qs, c, CONC_SECONDS)
+            r = sc.level(url, qs, c, CONC_SECONDS, record)
             torch.cuda.synchronize()
             r["launches"] = topk.cosine_topk_fused.launches
             if r["errors"] or not r["done"]:
@@ -2997,8 +2990,13 @@ def concurrent_phase(torch, topk, engine, chunks, here: str) -> dict:
                                      f"failed; first: {r['first_error']}")
             if r["launches"] < 1:
                 raise AssertionError(f"C={c}: the load never launched the fused f32 kernel")
+            bad = sorted({q for q, got in record if not hits_agree(dense[q], got, BATCH_TOL)})
+            if len(record) != r["done"] or bad:
+                raise AssertionError(f"C={c}: {len(record)} responses recorded for {r['done']} "
+                                     f"requests; hits differ from the dense tier's for {bad}")
             print(sc.line(N_MAIN, r, " backend=trained dtype=float32", CARD)
-                  + f"; fused launches {r['launches']} for {r['done']} requests", flush=True)
+                  + f"; fused launches {r['launches']} for {r['done']} requests, every response "
+                  f"equal to the dense tier's", flush=True)
             levels.append(r)
     finally:
         for srv in servers.values():
@@ -3007,35 +3005,105 @@ def concurrent_phase(torch, topk, engine, chunks, here: str) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+def arm_against(label, searcher, questions, k, reported, reference) -> int:
+    """An eval arm's searches again, in the harness's batches of 64, through
+    the arm's own route and through ``reference(searcher, batch, k)`` on the
+    same index: hits equal outside 1e-5 tie bands, and the route's hits
+    score to the summary the script reported. Returns how many questions'
+    ids differ inside a tie band."""
+    from ragfin_tpu_torch.eval.harness import evaluate_retrieval
+
+    texts = [q.question for q in questions]
+    routed, bad, ties = {}, [], 0
+    for s in range(0, len(texts), 64):
+        batch = texts[s : s + 64]
+        for q, a, b in zip(batch, searcher.search_texts(batch, top_k=k), reference(searcher, batch, k)):
+            got, ref = [h.to_dict(False) for h in a], [h.to_dict(False) for h in b]
+            if not hits_agree(ref, got, F32_TOL):
+                bad.append(q)
+            ties += [h["id"] for h in got] != [h["id"] for h in ref]
+            routed[q] = a
+    if bad:
+        raise AssertionError(f"{label}: hits differ from the reference's for {bad}")
+
+    class Replay:
+        def search_texts(self, queries, top_k, method="auto"):
+            return [routed[q] for q in queries]
+
+    timing = ("wall_s", "mean_latency_ms")
+    got = {key: v for key, v in evaluate_retrieval(Replay(), questions, k).summary().items()
+           if key not in timing}
+    want = {key: v for key, v in reported.items() if key not in timing}
+    if got != want:
+        raise AssertionError(f"{label}: the script reported {want}; its hits give {got}")
+    return ties
+
+
 def eval_phase(torch, topk, ivf, here: str, work_dir: str) -> dict:
     """(b) scripts/trained_eval_torch.py (ARMS=pipeline,raw,ivf: its
     counterparts of the base and IVF groups) and
     scripts/distractor_eval_torch.py (ARMS=base,ivf) at DISTRACTOR_N =
     N_EVAL, then the trained eval's pipeline and raw arms again at
-    TRAINED_DTYPE=int8, in this process, writing into the work directory;
-    rows 1-3's counters at 0 just before and read just after."""
+    TRAINED_DTYPE=int8, in this process, each dtype writing into its own
+    directory; rows 1-3's counters at 0 just before and read just after.
+    Every labelled arm is held, question by question, against the same
+    searches on the same index with the dense tier (f32) or the int8
+    kernel's plain version (int8) in the kernel's place, and its reported
+    summary against its hits; the trained IVF at full probe against the
+    host-exact oracle."""
+    from ragfin_tpu_torch.eval.datasets import load_holdout_phrasings
+    from ragfin_tpu_torch.retrieval.queryfilter import FilteredSearch
+
     te = drivers_module(here, "trained_eval_torch")
     de = drivers_module(here, "distractor_eval_torch")
-    out_dir = os.path.join(work_dir, "eval")
     keys = ("DISTRACTOR_N", "EVAL_OUT", "ARMS", "TRAINED_DTYPE", "REFERENCE_ROOT", "RAGFIN_DEVICE",
             "SLAB", "ENCODE_ONLY")
     saved = {k: os.environ.get(k) for k in keys}
     for k in keys:
         os.environ.pop(k, None)
-    os.environ.update({"DISTRACTOR_N": str(N_EVAL), "EVAL_OUT": out_dir})
-    topk.cosine_topk_fused.launches = 0
-    topk.cosine_topk_fused_int8.launches = 0
-    ivf.pruned_topk.launches = 0
-    reports = {}
+    os.environ["DISTRACTOR_N"] = str(N_EVAL)
+    counted = (topk.cosine_topk_fused, topk.cosine_topk_fused_int8, ivf.pruned_topk)
+    for w in counted:
+        w.launches = 0
+
+    def dense(searcher, batch, k):
+        return searcher.search_texts(batch, top_k=k, method="dense")
+
+    def plain_int8(searcher, batch, k):
+        with index_int8_plain(topk):
+            return searcher.search_texts(batch, top_k=k)
+
+    runs = (  # label, script, environment, the arms' reference
+        ("trained f32", te, {"ARMS": "pipeline,raw,ivf", "TRAINED_DTYPE": "f32", "EVAL_OUT": "f32"}, dense),
+        ("distractor", de, {"ARMS": "base,ivf", "EVAL_OUT": "f32"}, dense),
+        ("trained int8", te, {"ARMS": "pipeline,raw", "TRAINED_DTYPE": "int8", "EVAL_OUT": "int8"},
+         plain_int8),
+    )
+    hp = load_holdout_phrasings()
+    reports, ties = {}, {}
     try:
-        os.environ.update({"ARMS": "pipeline,raw,ivf", "TRAINED_DTYPE": "f32"})
-        reports["trained f32"] = te.main()
-        f32_json = os.path.join(out_dir, f"trained_eval_torch_{N_EVAL}.json")
-        os.replace(f32_json, f32_json.replace(".json", "_f32.json"))  # no merge into the int8 run
-        os.environ["ARMS"] = "base,ivf"
-        reports["distractor"] = de.main()
-        os.environ.update({"ARMS": "pipeline,raw", "TRAINED_DTYPE": "int8"})
-        reports["trained int8"] = te.main()
+        for label, script, env, reference in runs:
+            os.environ.update({**env, "EVAL_OUT": os.path.join(work_dir, "eval", env["EVAL_OUT"])})
+            kept: dict = {}
+            rep = reports[label] = script.main(kept)
+            idx = kept["index"]
+            if rep.get("n_chunks") != N_EVAL + 16 or not rep["device"].startswith("cuda"):
+                raise AssertionError(f"{label}: {rep.get('n_chunks')} chunks on {rep.get('device')}")
+            arms = {name: r for name, r in rep["results"].items() if "retrieval_recall" in r}
+            if not arms:
+                raise AssertionError(f"{label}: no arm ran")
+            with uncounted(*counted):
+                for name, r in arms.items():
+                    if not name.startswith("holdout_phrasings_"):
+                        raise AssertionError(f"{label}: arm {name} has no questions here")
+                    searcher = idx if "_raw" in name else FilteredSearch(idx)
+                    ties[f"{label} {name}"] = arm_against(f"{label} {name}", searcher, hp, r["k"], r,
+                                                          reference)
+            print(f"eval {label} (N = {N_EVAL} + 16, {rep['questions']}): " + "; ".join(
+                f"{name} recall@{r['k']} {r['retrieval_recall']['mean']:.4f}" for name, r in arms.items())
+                + f"; every arm's hits equal to the {'plain int8' if reference is plain_int8 else 'dense'} "
+                f"route's (questions differing inside a tie band: "
+                f"{sum(n for a, n in ties.items() if a.startswith(label))})", flush=True)
     finally:
         for k, v in saved.items():
             os.environ.pop(k, None) if v is None else os.environ.__setitem__(k, v)
@@ -3045,20 +3113,11 @@ def eval_phase(torch, topk, ivf, here: str, work_dir: str) -> dict:
                 "ivf_topk": ivf.pruned_topk.launches}
     if min(launches.values()) < 1:
         raise AssertionError(f"the evals did not reach every kernel: {launches}")
-    for label, rep in reports.items():
-        if rep.get("n_chunks") != N_EVAL + 16 or not rep["device"].startswith("cuda"):
-            raise AssertionError(f"{label}: {rep.get('n_chunks')} chunks on {rep.get('device')}")
-        arms = {name: r for name, r in rep["results"].items() if "retrieval_recall" in r}
-        if not arms:
-            raise AssertionError(f"{label}: no arm ran")
-        for name, r in arms.items():
-            recall = r["retrieval_recall"]["mean"]
-            if not 0.0 <= recall <= 1.0 or r["questions_evaluated"] < 1:
-                raise AssertionError(f"{label} {name}: {r}")
-        print(f"eval {label} (N = {N_EVAL} + 16, {rep['questions']}): " + "; ".join(
-            f"{name} recall@{r['k']} {r['retrieval_recall']['mean']:.4f}"
-            for name, r in arms.items()), flush=True)
-    trained_ivf = reports["trained f32"]["results"].get("ivf_vs_exact_overlap@10_trained")
+    f32, i8 = reports["trained f32"]["results"], reports["trained int8"]["results"]
+    same = {name: f32[name]["retrieval_recall"] == r["retrieval_recall"]
+            for name, r in i8.items() if "retrieval_recall" in r}
+    print(f"eval trained int8 against f32: recall equal per arm {same}", flush=True)
+    trained_ivf = f32.get("ivf_vs_exact_overlap@10_trained")
     hashed_ivf = reports["distractor"]["results"].get("ivf_vs_exact_overlap@10")
     if not trained_ivf or not hashed_ivf:
         raise AssertionError("an IVF agreement arm did not finish")
@@ -3068,7 +3127,7 @@ def eval_phase(torch, topk, ivf, here: str, work_dir: str) -> dict:
     print(f"eval IVF agreement@10 by nprobe ({trained_ivf['n_cells']} cells): trained f32 "
           f"{json.dumps(trained_ivf['agreement_by_nprobe'])}; hashed (against the dense tier) "
           f"{json.dumps(hashed_ivf['agreement_by_nprobe'])}; launches {launches}", flush=True)
-    return {"launches": launches, "reports": reports}
+    return {"launches": launches, "reports": reports, "ties": ties}
 
 
 def demo_phase(here: str) -> float:
@@ -3175,6 +3234,21 @@ def int8_plain(topk):
         yield
     finally:
         topk.cosine_topk_fused_int8 = kernel
+
+
+@contextlib.contextmanager
+def index_int8_plain(topk):
+    """The index module calls fused_topk_int8_plain where it would launch
+    the int8 kernel."""
+    from ragfin_tpu_torch.index import vector_index
+
+    kernel = vector_index.cosine_topk_fused_int8
+    vector_index.cosine_topk_fused_int8 = (
+        lambda q, c, s, k, n_valid=None: topk.fused_topk_int8_plain(q, c, s, k, n_valid))
+    try:
+        yield
+    finally:
+        vector_index.cosine_topk_fused_int8 = kernel
 
 
 def par_mesh(dev, p: int, axis: str = "data"):

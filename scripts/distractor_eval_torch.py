@@ -78,7 +78,10 @@ def _ivf_agreement(idx, qa, out):
     )
 
 
-def main() -> dict:
+def main(keep: dict | None = None) -> dict:
+    """Runs the arms ARMS selects and returns the report it writes.
+    ``keep``, where given, receives the index the arms search under
+    "index" (for a caller that checks their hits)."""
     from ragfin_tpu_torch.eval.distractors import (
         generate_distractors,
         generate_inscope_distractors,
@@ -103,6 +106,8 @@ def main() -> dict:
     print(f"[{time.perf_counter()-t0:7.1f}s] generated {N:,} distractors", flush=True)
     idx = build(list(real) + dis)
     print(f"[{time.perf_counter()-t0:7.1f}s] index built on {device}: {len(idx):,} chunks", flush=True)
+    if keep is not None:
+        keep["index"] = idx
     para = paraphrased_questions(qa) if qa else None
     labelled = qa or hp  # the in-scope, conflict and IVF arms' questions
     fs = FilteredSearch(idx)

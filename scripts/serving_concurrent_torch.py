@@ -67,13 +67,38 @@ def post(conn: http.client.HTTPConnection, path: str, query: str, top_k: int = 3
     return body
 
 
-def level(url: str, questions, n_clients: int, duration: float) -> dict:
+def serve(engine) -> tuple[dict, str]:
+    """The vector MCP server and the vector adapter over ``engine`` on
+    ephemeral ports: (the servers by name, the adapter's /search URL)."""
+    from ragfin_tpu_torch.serving.main import launch
+
+    servers = launch(
+        services=("vector_mcp", "vector_adapter"),
+        ports={"vector_mcp": 0, "vector_adapter": 0},
+        engine=engine,
+    )
+    return servers, f"http://127.0.0.1:{servers['vector_adapter'].port}/search"
+
+
+def warm(url: str, questions) -> dict:
+    """One pass of ``questions``, one at a time on one connection: each
+    question's results."""
+    parts = urlsplit(url)
+    conn = http.client.HTTPConnection(parts.hostname, parts.port, timeout=600)
+    try:
+        return {q: post(conn, parts.path, q)["results"] for q in questions}
+    finally:
+        conn.close()
+
+
+def level(url: str, questions, n_clients: int, duration: float, record=None) -> dict:
     """C client threads post ``/search`` round-robin over ``questions`` for
     ``duration`` seconds, each on its own HTTPConnection. METRICS is reset
     first, so call this only with nothing in flight. Returns the requests
     done, errors, wall seconds, QPS, client p50/p95 in ms, whether the
     server kept connections alive, and the batcher's dispatches, queries
-    and batch-size mean/p50/p90 over the level."""
+    and batch-size mean/p50/p90 over the level. ``record``, a list where
+    given, receives (question, results) of every answered request."""
     import numpy as np
 
     from ragfin_tpu_torch.utils.profiling import METRICS
@@ -95,8 +120,10 @@ def level(url: str, questions, n_clients: int, duration: float) -> dict:
                 j += n_clients
                 t = time.perf_counter()
                 try:
-                    post(conn, parts.path, q)
+                    body = post(conn, parts.path, q)
                     lat[i].append(time.perf_counter() - t)
+                    if record is not None:
+                        record.append((q, body["results"]))
                     # http.client drops the socket after a response that
                     # closes the connection.
                     keep_alive[0] = conn.sock is not None
@@ -150,7 +177,6 @@ def main() -> None:
     from ragfin_tpu_torch.config.settings import get_config
     from ragfin_tpu_torch.eval.distractors import generate_distractors, paraphrased_questions
     from ragfin_tpu_torch.serving.engine import RagFinEngine
-    from ragfin_tpu_torch.serving.main import launch
     from ragfin_tpu_torch.utils.device import resolve_device
     from trained_eval_torch import reference_inputs
 
@@ -200,12 +226,7 @@ def main() -> None:
         if engine.batcher is None:
             raise RuntimeError("the batcher must be on for this benchmark")
         _stage(f"[{dtype}] engine up in {time.perf_counter()-t0:.0f}s; launching servers")
-        servers = launch(
-            services=("vector_mcp", "vector_adapter"),
-            ports={"vector_mcp": 0, "vector_adapter": 0},
-            engine=engine,
-        )
-        return engine, servers, f"http://127.0.0.1:{servers['vector_adapter'].port}/search"
+        return (engine, *serve(engine))
 
     if qa:
         questions = [q.question for q in qa] + [q.question for q in paraphrased_questions(qa)]
@@ -218,13 +239,7 @@ def main() -> None:
             stacks[d] = build_stack(d)
             _stage(f"[{d}] warming {len(questions)} question shapes through the adapter")
             t0 = time.perf_counter()
-            url = urlsplit(stacks[d][2])
-            conn = http.client.HTTPConnection(url.hostname, url.port, timeout=600)
-            try:
-                for q in questions:
-                    post(conn, url.path, q)
-            finally:
-                conn.close()
+            warm(stacks[d][2], questions)
             _stage(f"[{d}] warm pass {time.perf_counter()-t0:.1f}s")
 
         for n_clients, dtype in [(c, d) for c in clients for d in dtypes]:

@@ -130,7 +130,10 @@ def encode_corpus(embedder, texts, t0, path=None):
     return np.concatenate(slabs, axis=0)
 
 
-def main() -> dict:
+def main(keep: dict | None = None) -> dict:
+    """Runs the arms ARMS selects and returns the report it writes.
+    ``keep``, where given, receives the index the arms search under
+    "index" (for a caller that checks their hits)."""
     import numpy as np
 
     from ragfin_tpu_torch.eval.distractors import generate_distractors, paraphrased_questions
@@ -166,6 +169,8 @@ def main() -> dict:
     idx = DeviceVectorIndex(matrix, chunks, dtype=dtype, device=device)
     del matrix  # the index keeps its own (padded) rows
     idx.embedder = embedder  # query encoding path
+    if keep is not None:
+        keep["index"] = idx
     print(f"[{time.perf_counter()-t0:7.1f}s] index built: {len(idx):,} (dtype {dtype})", flush=True)
 
     para = paraphrased_questions(qa) if qa else None
