@@ -13,17 +13,19 @@ Phases (any failure exits nonzero, and no phase carries on past one):
 1. Device and build: the card's name and power limit from nvidia-smi, then
    every kernel in ragfin_tpu_torch/csrc/ built with nvcc (one process per
    source, all started together), and the ptxas line (registers, spills) of
-   every pass-1 instantiation (f32, bf16, int8) and merge case; a spill in a
-   pass-1 instantiation the main path runs (the f32/bf16 selection at
-   k <= 64, every int8 selection) fails. Then the merge cases, the
-   two-level selection's primitives: scripts/mosaic_bisect_torch.py as a
-   user runs it, with the kernel's counter at 0 just before and read just
-   after, and each case bitwise against its plain version, timed.
+   every pass-1 instantiation (f32, bf16, int8: the selection and every
+   ceiling stage), of pass 2 and of every merge case; any spill fails. Then
+   the merge cases, the selection's primitives (the nine Pallas bisect
+   cases, and the queue push, bitonic sort, bitonic merge and bound filter
+   of the queue selection): scripts/mosaic_bisect_torch.py as a user runs
+   it, with the kernel's counter at 0 just before and read just after, and
+   each case bitwise against its plain version, timed.
 2. Kernels against their plain PyTorch versions, on seeded unit embeddings
    at D = 384, N = 1,000,000, n_valid not a multiple of any tile, for
    Q in {1, 8, 64, 1024} and k in {3, 64, 70}: f32 "exact", bf16 "exact"
-   (f32 queries), bf16 "fast", int8 (flat and tile-major). The f32/bf16 ids must also equal
-   those of an f64 oracle on the same inputs outside tie bands.
+   (f32 queries), bf16 "fast", int8 (flat and tile-major). The ids of every path must also
+   equal those of an f64 oracle on the same inputs outside tie bands (int8: the
+   exact int dot times the scales in f64).
    Duplicated corpus columns make exact ties, which must come back lowest
    id first. f32/bf16 scores agree within 1e-5 (the kernel and cuBLAS sum in
    different orders); int8 scores are bitwise equal (the integer dot is
@@ -32,7 +34,10 @@ Phases (any failure exits nonzero, and no phase carries on past one):
    runs after warm-up) beside its plain version, torch.matmul + torch.topk
    (int8: torch._int_mm + torch.topk, the queries padded to 32 rows where
    _int_mm needs more than 16; a yardstick only), and the card's bound for
-   the same work.
+   the same work, at Q = 1, 8 and 64 (int8 also 1024); pass 1 and pass 2
+   apart from torch.profiler; and the stage ladder of pass 1 (the ceiling
+   stages at the fused grid beside pass 1, pass 2 and the whole call) at
+   Q = 64 and, f32 and bf16, Q = 8.
 3. Main path: RagFinEngine (trained encoder, f32 index) over 131,072
    generated filings answers questions through VectorRAG.search and
    search_and_answer, some concurrently through the batcher. The filings
@@ -126,7 +131,8 @@ Phases (any failure exits nonzero, and no phase carries on past one):
    block_q 8, k 64,
    nprobe 32: the pruned kernel against its plain version for f32 "exact",
    bf16 "fast" (within 1e-5, ids equal outside tie bands) and int8
-   (bitwise), and at nprobe = n_cells against the exact fused tier; timed
+   (bitwise), every tier's ids against an f64 oracle of its probed cells
+   outside tie bands, and at nprobe = n_cells against the exact fused tier; timed
    beside a gather of the probed cells + torch.matmul + torch.topk (int8:
    torch._int_mm per query tile). With
    --sweep the wrapper's grid rule (blocks per probed cell) is timed against
@@ -141,9 +147,12 @@ Phases (any failure exits nonzero, and no phase carries on past one):
    by the XOR of the loaded words; then timed. The same for the bench path's
    own call (bf16 Q = 64, N = 1,000,000 not padded, block_n the fused kernel's
    chunk), which phase 9 counts. Phase 2 prints the stage ladder (block read,
-   + product, + mask, + row max, + arg-max, pass 1, whole kernel) for f32,
-   bf16 and int8 at Q = 64 on its own corpus (n_valid = N - 63, ragged last
-   tile), every stage held against ceiling_plain before it is timed.
+   + product, + mask, + row max, + arg-max, pass 1, pass 2, whole kernel) for
+   f32, bf16 and int8 at Q = 64 (f32 and bf16 also at Q = 8) on its own corpus
+   (n_valid = N - 63, ragged last tile), every stage held against
+   ceiling_plain before it is timed. The row-max and arg-max stages keep
+   each lane's best in registers across the probe tile, as the selection's
+   gate keeps its thresholds.
 8. Served: a chunk snapshot of 131,072 generated filings on disk, the engine
    from Settings(chunks_snapshot, index_dir) through get_engine, launch() of
    all seven services on ephemeral ports, and over HTTP /health on each,
@@ -325,6 +334,23 @@ def time_ms(torch, fn, runs: int = 20, warmup: int = 3) -> float:
     return device_ms(fn, runs=runs, warmup=warmup)
 
 
+def stream_ms(torch, fn, runs: int = 20, warmup: int = 3) -> float:
+    """Mean time of ``runs`` calls of fn() issued back to back, with one pair
+    of CUDA events around them all: the device's time per call once the
+    host runs ahead, without the enqueue latency that time_ms, one call at a
+    time, includes."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(runs):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / runs
+
+
 def ids_agree(ref_s, ref_i, got_i, tol: float) -> bool:
     """Ids equal wherever the reference score differs from both neighbours
     by more than ``tol`` (inside a band of closer scores, two float sums may
@@ -363,6 +389,28 @@ def f64_oracle(torch, q, corpus_t, k, n_valid, bf16_queries=False):
     for c0 in range(0, n_valid, 1 << 18):
         c1 = min(n_valid, c0 + (1 << 18))
         sc = qd @ corpus_t[:, c0:c1].double()
+        s, i = torch.topk(sc, min(k, c1 - c0), dim=1)
+        i = i + c0
+        if best_s is not None:
+            s, sel = torch.topk(torch.cat([best_s, s], 1), k, dim=1)
+            i = torch.gather(torch.cat([best_i, i], 1), 1, sel)
+        best_s, best_i = s, i
+    return best_s.float().cpu().numpy(), best_i.cpu().numpy()
+
+
+def int8_f64_oracle(torch, q, ct8, sc8, k, n_valid):
+    """Top k by f64 scores of the int8 route's inputs: the exact int dot of
+    the quantised queries and columns times the column scale and the row
+    scale, columns >= n_valid masked; [Q, k] numpy scores and ids (ties in
+    any order: compare ids outside tie bands only)."""
+    from ragfin_tpu_torch.ops.quantize import quantize_queries
+
+    q8, qscale = quantize_queries(q)
+    qd, rs = q8.double(), qscale.double().reshape(-1, 1)
+    best_s, best_i = None, None
+    for c0 in range(0, n_valid, 1 << 17):
+        c1 = min(n_valid, c0 + (1 << 17))
+        sc = (qd @ ct8[:, c0:c1].double()) * sc8.reshape(1, -1)[:, c0:c1].double() * rs
         s, i = torch.topk(sc, min(k, c1 - c0), dim=1)
         i = i + c0
         if best_s is not None:
@@ -437,9 +485,13 @@ def kernel_phase(torch, topk, sweep: bool = False) -> dict:
             if not ids_agree(ps, pi, i, F32_TOL):
                 raise AssertionError(f"{label} Q={q_n} k={k}: ids differ outside tie bands")
             check_ties(np, label, q_n, k, s, i, src, n)
+        # The int8 route's ids against the f64 oracle of its own inputs.
+        os8, oi8 = int8_f64_oracle(torch, q, ct8, sc8, k + 1, n_valid)
         for label, c8, s8 in (("int8", ct8, sc8), ("int8 tile-major", tiled8, tiled_sc8)):
             s, i = i8(q, c8, s8, k, n_valid=n_valid)
             torch.cuda.synchronize()
+            if not ids_agree(os8, oi8, i.cpu().numpy(), F32_TOL):
+                raise AssertionError(f"{label} Q={q_n} k={k}: ids differ from the f64 oracle")
             ps, pi = topk.fused_topk_int8_plain(q, c8, s8, k, n_valid=n_valid)
             s, i, ps, pi = (x.cpu().numpy() for x in (s, i, ps, pi))
             errs["fused_topk_int8"] = max(errs["fused_topk_int8"], score_err(s, ps))
@@ -447,13 +499,14 @@ def kernel_phase(torch, topk, sweep: bool = False) -> dict:
                 raise AssertionError(f"{label} Q={q_n} k={k}: not bitwise equal to the plain version")
             check_ties(np, label, q_n, k, s, i, src, n)
         print(f"kernel check Q={q_n} k={k}: f32/tile-major/bf16 exact/bf16 fast within {F32_TOL} "
-              f"of plain, ids equal to the f64 oracle outside tie bands, "
-              f"int8 flat and tile-major bitwise equal", flush=True)
+              f"of plain, int8 flat and tile-major bitwise equal, ids of every path equal to "
+              f"the f64 oracle outside tie bands", flush=True)
 
-    # Timing at the main path's widths: k = 64 (f32) and 70 (int8 shortlist).
+    # Timing at the main path's widths: k = 64 (f32) and 70 (int8 shortlist);
+    # int8 also at Q = 1024, where its 64-row blocks run.
     print(f"int8 library call: torch._int_mm on {b8_layout}", flush=True)
     rows = {}
-    for q_n in (1, 8, 64):
+    for q_n in (1, 8, 64, 1024):
         q = q_all[:q_n].contiguous()
         int8_library = lambda: torch.topk(  # noqa: E731
             int_mm(torch, quantize_queries(q)[0], b8).float() * sc8, 70)
@@ -471,47 +524,53 @@ def kernel_phase(torch, topk, sweep: bool = False) -> dict:
              lambda: topk.fused_topk_int8_plain(q, ct8, sc8, 70, n_valid=n_valid),
              int8_library),
         ):
+            if q_n == 1024 and name != "fused_topk_int8":
+                continue
             ms = time_ms(torch, run)
             plain_ms = time_ms(torch, plain)
             lib_ms = time_ms(torch, lib) if lib is not None else None
+            back_ms, lib_back_ms = stream_ms(torch, run), stream_ms(torch, lib)
             b_ms, b_by = bound(q_n, n, k, corpus_dtype, ops_type)
             rows[(name, q_n)] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                     bound_ms=b_ms, bound_by=b_by, k=k)
+                                     bound_ms=b_ms, bound_by=b_by, k=k, back_to_back_ms=back_ms,
+                                     library_back_to_back_ms=lib_back_ms)
             print(f"kernel {name} Q={q_n} N={n} k={k}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                   f"library {'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
-                  f"bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of bound [{CARD}]", flush=True)
-    for q_n, label, fn in (
-        (1, "fused_topk f32", lambda q: f32(q, ct32, 64, n_valid=n_valid)),
-        (64, "fused_topk f32", lambda q: f32(q, ct32, 64, n_valid=n_valid)),
-        (64, "fused_topk_int8", lambda q: i8(q, ct8, sc8, 70, n_valid=n_valid)),
+                  f"bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of bound; back to back "
+                  f"{back_ms:.4f} ms, library {lib_back_ms:.4f} ms [{CARD}]", flush=True)
+    # Pass 1 and pass 2 apart at Q = 1 (the stage ladders below give them at
+    # Q = 8 and 64), and int8's quantisation kernels beside them.
+    for label, fn in (
+        ("fused_topk f32", lambda q: f32(q, ct32, 64, n_valid=n_valid)),
+        ("fused_topk bf16 fast", lambda q: f32(q, ct16, 64, n_valid=n_valid, precision="fast")),
+        ("fused_topk_int8", lambda q: i8(q, ct8, sc8, 70, n_valid=n_valid)),
     ):
-        profile_breakdown(torch, label, q_n, lambda: fn(q_all[:q_n].contiguous()))
+        profile_breakdown(torch, label, 1, lambda: fn(q_all[:1].contiguous()))
     if sweep:
-        # The int8 wrapper's rows per block (topk._tile, 32 below
-        # topk._INT8_WIDE_FROM rows, else 64) against the other choice, in
-        # turns (rule, other, other, rule); equal outputs.
-        rule = topk._INT8_WIDE_FROM
+        # The int8 wrapper's rows per block (topk._tile) against the other
+        # choice, in turns (rule, other, other, rule); equal outputs.
+        rule = topk._tile
         try:
             for q_n in (64, 128, 1024):
                 q = q_all[:q_n].contiguous()
                 want = i8(q, ct8, sc8, 70, n_valid=n_valid)
-                picked = topk._tile(q_n, D, 1)
+                picked = rule(q_n, D, 1)
                 other = 64 if picked == 32 else 32
                 times = {picked: [], other: []}
                 for rows_per_block in (picked, other, other, picked):
-                    topk._INT8_WIDE_FROM = 0 if rows_per_block == 64 else 1 << 30
+                    topk._tile = lambda *a, rows=rows_per_block, **kw: rows
                     got = i8(q, ct8, sc8, 70, n_valid=n_valid)
                     if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
                         raise AssertionError(f"int8 Q={q_n}: {rows_per_block} rows a block give "
                                              "another result")
                     times[rows_per_block].append(
                         time_ms(torch, lambda: i8(q, ct8, sc8, 70, n_valid=n_valid)))
-                topk._INT8_WIDE_FROM = rule
+                topk._tile = rule
                 print(f"fused_topk_int8 Q={q_n} k=70 by rows per block (the wrapper picks "
                       f"{picked}): " + ", ".join(f"{w}: " + " / ".join(f"{t:.4f}" for t in ts) + " ms"
                                                 for w, ts in times.items()) + f" [{CARD}]", flush=True)
         finally:
-            topk._INT8_WIDE_FROM = rule
+            topk._tile = rule
     # The dispatcher's threshold (topk.FUSED_MIN_N): fused kernel against
     # the dense tier (cuBLAS f32 product + stable sort) around it.
     for n_cut in (16384, 65536, 131072, 262144):
@@ -524,17 +583,22 @@ def kernel_phase(torch, topk, sweep: bool = False) -> dict:
             line.append(f"Q={q_n} fused {fused_ms:.4f} ms dense {dense_ms:.4f} ms")
         print(f"threshold N={n_cut} k=64: " + "; ".join(line), flush=True)
     # Stage ladder: pass 1 of each fused kernel with the selection replaced
-    # by the ceiling stages (same grid: the probe tile is the kernel's chunk).
-    q64 = q_all[:64].contiguous()
+    # by the ceiling stages (same grid: the probe tile is the kernel's chunk),
+    # at Q = 64 and, for the f32/bf16 kernels, Q = 8.
     ladders = {}
-    for label, corpus, scales, probe_q, run in (
-        ("f32", ct32, None, q64, lambda: f32(q64, ct32, 64, n_valid=n_valid)),
-        ("bf16", ct16, None, q64.to(torch.bfloat16),
-         lambda: f32(q64, ct16, 64, n_valid=n_valid, precision="fast")),
-        ("int8", ct8, sc8, quantize_queries(q64)[0].contiguous(),
-         lambda: i8(q64, ct8, sc8, 70, n_valid=n_valid)),
-    ):
-        ladders[label] = stage_ladder(torch, label, probe_q, corpus, scales, n_valid, run)
+    for q_n in (64, 8):
+        qq = q_all[:q_n].contiguous()
+        for label, corpus, scales, probe_q, run in (
+            ("f32", ct32, None, qq, lambda: f32(qq, ct32, 64, n_valid=n_valid)),
+            ("bf16", ct16, None, qq.to(torch.bfloat16),
+             lambda: f32(qq, ct16, 64, n_valid=n_valid, precision="fast")),
+            ("int8", ct8, sc8, quantize_queries(qq)[0].contiguous(),
+             lambda: i8(qq, ct8, sc8, 70, n_valid=n_valid)),
+        ):
+            if q_n == 8 and label == "int8":
+                continue
+            key = label if q_n == 64 else f"{label} Q={q_n}"
+            ladders[key] = stage_ladder(torch, label, probe_q, corpus, scales, n_valid, run)
     f32.launches = 0
     i8.launches = 0
     return {"rows": rows, "errs": errs, "n": n, "ladders": ladders}
@@ -570,8 +634,9 @@ def stage_ladder(torch, label, probe_q, corpus, scales, n_valid, run) -> dict:
     """On one corpus, every ceiling stage (block read, + product, + mask,
     + row max, + arg-max) first held against ceiling_plain at the fused
     kernel's own grid (block_n = its chunk, the last 128-column tile ragged),
-    then timed beside pass 1 of the fused kernel (its device time under
-    torch.profiler) and the whole fused call."""
+    then timed back to back beside pass 1 and pass 2 of the fused kernel
+    (their device times under torch.profiler) and the whole fused call (back
+    to back, and one call at a time)."""
     from ragfin_tpu_torch.ops import ceiling as C
 
     q_n, n = probe_q.shape[0], corpus.shape[-1]
@@ -579,16 +644,16 @@ def stage_ladder(torch, label, probe_q, corpus, scales, n_valid, run) -> dict:
     stages = C.ladder_stages(corpus.dtype)
     err = max(ceiling_check(torch, f"ladder {label}", probe_q, corpus, stage, block_n,
                             n_valid, scales)[0] for stage in stages)
+    # Back to back, so that each stage's time is the device's and not the
+    # wrapper's host latency, as pass 1 and pass 2 are from the profiler.
     out = {
-        stage: time_ms(torch, lambda: C.ceiling(probe_q, corpus, stage, block_n,
-                                                n_valid=n_valid, scales=scales), runs=10)
+        stage: stream_ms(torch, lambda: C.ceiling(probe_q, corpus, stage, block_n,
+                                                  n_valid=n_valid, scales=scales), runs=10)
         for stage in stages
     }
-    parts, _ = profiled(torch, run, 5)
-    out["pass1"] = next((ms for ms, name in parts if "pass1" in name), None)
-    if out["pass1"] is None:
-        raise AssertionError(f"no pass-1 kernel in the profile of {label}: {parts[:4]}")
-    out["kernel"] = time_ms(torch, run, runs=10)
+    out["pass1"], out["pass2"] = kernel_ms(torch, run, "pass1", "merge_bound")
+    out["kernel"] = stream_ms(torch, run, runs=10)
+    out["kernel one call"] = time_ms(torch, run, runs=10)
     C.ceiling.launches = 0
     print(f"stage ladder {label} Q={q_n} N={n} n_valid={n_valid} block_n={block_n} "
           f"(every stage equal to plain, max |err| {err:.3g}): "
@@ -764,12 +829,29 @@ def profiled(torch, fn, reps: int) -> tuple[list[tuple[float, str]], float]:
     return sorted(((ms / reps, name) for name, (_, ms) in kernels.items()), reverse=True), wall_ms
 
 
+def kernel_ms(torch, fn, *names: str, reps: int = 5) -> list[float]:
+    """Device ms of one launch of each kernel named (by a part of its name),
+    from torch.profiler over ``reps`` calls of fn(): its device time in all
+    over its number of records, so that a profile that lost some records
+    still gives the time of one launch. Tried again (FIRST_K_PROFILES times
+    in all) until every name has records."""
+    for _ in range(FIRST_K_PROFILES):
+        kernels, _, _ = kernel_profile(torch, fn, reps)
+        found = [next(((ms, count) for kernel, (count, ms) in kernels.items() if name in kernel),
+                      None) for name in names]
+        if all(found):
+            return [ms / count for ms, count in found]
+    raise AssertionError(f"no {names} kernels in {FIRST_K_PROFILES} profiles: {list(kernels)[:4]}")
+
+
 def profile_breakdown(torch, label: str, q_n: int, fn, reps: int = 10) -> None:
-    """Device time per CUDA kernel of one call, from torch.profiler."""
-    parts, _ = profiled(torch, fn, reps)
-    parts = [p for p in parts if not p[1].startswith("Memcpy")]
+    """Device time of one launch of each CUDA kernel of a call that launches
+    each once, from torch.profiler (time in all over records)."""
+    kernels, _, _ = kernel_profile(torch, fn, reps)
+    parts = sorted(((ms / count, name) for name, (count, ms) in kernels.items()
+                    if not name.startswith("Memcpy")), reverse=True)
     text = ", ".join(f"{name} {ms:.4f} ms" for ms, name in parts[:6]) or "no device time seen"
-    print(f"profile {label} Q={q_n} (per call): {text}", flush=True)
+    print(f"profile {label} Q={q_n} (per launch): {text}", flush=True)
 
 
 def request_breakdown(torch, rag, question: str, reps: int = 5) -> dict:
@@ -806,7 +888,7 @@ MERGE_BYTES = 64 * 256 * 4 + 64 * 128 * 4
 
 
 def merge_phase(torch, here: str) -> dict:
-    """The two-level selection's primitives on the card: the script a user
+    """The selection's primitives on the card: the script a user
     runs (scripts/mosaic_bisect_torch.py) with the kernel's counter at 0 just
     before and read just after, then each case bitwise against its plain
     version on the same tile and timed beside it."""
@@ -848,10 +930,9 @@ def merge_phase(torch, here: str) -> dict:
 
 
 def pass1_ptxas(_cuda) -> None:
-    """The ptxas line of every pass-1 instantiation (f32, bf16, int8) and
-    merge case; a spill in an instantiation the main path runs fails: the
-    f32/bf16 selection at k <= 64, and every int8 selection (the int8
-    shortlist is k = 70)."""
+    """The ptxas line of every pass-1 instantiation (f32, bf16, int8; the
+    selection and every ceiling stage), of pass 2 (merge_bound) and of every
+    merge case; any spill fails."""
     import re
 
     bad = []
@@ -859,16 +940,15 @@ def pass1_ptxas(_cuda) -> None:
         report = _cuda.ptxas_report(_cuda.build_log(name))
         spilled = set(_cuda.spills(report))
         for kernel, summary in report:
-            if "fused_topk_pass1<" not in kernel and "merge_case_kernel" not in kernel:
+            if not any(part in kernel for part in ("fused_topk_pass1<", "merge_case_kernel",
+                                                   "merge_bound<")):
                 continue
             short = re.sub(r"\([^()]*\)$", "", kernel)  # without the parameter list
             print(f"ptxas {name}: {short}: {summary}", flush=True)
-            main = re.search(r"fused_topk_pass1<[^>]*, 0, 2>", kernel) or \
-                re.search(r"fused_topk_pass1<signed char, [^>]*, 0, \d>", kernel)
-            if kernel in spilled and main:
+            if kernel in spilled:
                 bad.append(short)
     if bad:
-        raise AssertionError(f"main-path pass-1 instantiations spill registers: {bad}")
+        raise AssertionError(f"instantiations spill registers: {bad}")
 
 
 # --- phase 4: first-k alone ------------------------------------------------
@@ -1226,6 +1306,28 @@ def ivf_inputs(torch, ivf):
     return ct32, q_all, idx32, idx8, build_s
 
 
+def ivf_f64_oracle(torch, qin, qs, index, probe, k):
+    """Top k by f64 scores over each query tile's probed cells (int8 cells:
+    the exact int dot times the row and the column scale), permuted ids at
+    or past n_valid masked; [Qp, k] numpy scores and permuted ids."""
+    cell = index.cells.shape[2]
+    out_s, out_i = [], []
+    for t, pr in enumerate(probe.long()):
+        rows_t = slice(t * IVF_BLOCK_Q, (t + 1) * IVF_BLOCK_Q)
+        cells = index.cells[pr].double()  # [nprobe, D, cell]
+        qt = qin[rows_t].double()
+        if index.scales is not None:
+            cells = cells * index.scales[pr].double()
+            qt = qt * qs[rows_t].double().reshape(-1, 1)
+        sc = torch.einsum("qd,pdc->qpc", qt, cells).reshape(qt.shape[0], -1)
+        pid = (pr[:, None] * cell + torch.arange(cell, device=pr.device)).reshape(-1)
+        sc = sc.masked_fill(pid[None, :] >= index.n_valid, float("-inf"))
+        s, j = torch.topk(sc, k, dim=1)
+        out_s.append(s)
+        out_i.append(pid[j])
+    return torch.cat(out_s).float().cpu().numpy(), torch.cat(out_i).cpu().numpy()
+
+
 def ivf_phase(torch, topk, ivf, sweep: bool = False) -> dict:
     import numpy as np
 
@@ -1256,6 +1358,9 @@ def ivf_phase(torch, topk, ivf, sweep: bool = False) -> dict:
             torch.cuda.synchronize()
             ps, pi = ivf.pruned_topk_plain(*args, IVF_K + 1, IVF_BLOCK_Q)
             s, i, ps, pi = (t.cpu().numpy() for t in (s, i, ps, pi))
+            os_, oi = ivf_f64_oracle(torch, qin, qs, index, probe, IVF_K + 1)
+            if not ids_agree(os_, oi, i, F32_TOL):
+                raise AssertionError(f"IVF {label} Q={q_n}: ids differ from the f64 oracle")
             if index.scales is not None:
                 ref = ps[:, :IVF_K]
                 max_err = max(max_err, score_err(s, ref))
@@ -1304,7 +1409,8 @@ def ivf_phase(torch, topk, ivf, sweep: bool = False) -> dict:
                   f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
                   f"bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of bound [{CARD}]", flush=True)
         print(f"IVF check Q={q_n}: f32 and bf16 within {F32_TOL} of the plain version, "
-              f"int8 bitwise equal", flush=True)
+              f"int8 bitwise equal, ids of every tier equal to the f64 oracle outside tie "
+              f"bands", flush=True)
 
     # The grid rule of the wrapper (ivf._splits: blocks per probed cell)
     # against fixed values: equal outputs, and the time of each.
@@ -3827,6 +3933,20 @@ def parallel_inputs(torch, graph_index, ivf):
     return main_in, scale_graph(graph_index), ivf_inputs(torch, ivf)[:4]
 
 
+class Lap:
+    """Seconds each phase of the full run took, on the host clock: call it
+    with the phase's name and result just after the phase."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+
+    def __call__(self, name, result):
+        now = time.perf_counter()
+        print(f"phase {name}: {now - self.t:.1f} s", flush=True)
+        self.t = now
+        return result
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(
         description=__doc__.splitlines()[0],
@@ -3869,10 +3989,11 @@ def main() -> int:
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
+    lap = Lap()
     logs = _cuda.build_all()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s ({len(logs)} sources)", flush=True)
     pass1_ptxas(_cuda)
-    merge = merge_phase(torch, here)
+    merge = lap("build, ptxas, merge cases", merge_phase(torch, here))
     if args.parallel:
         parallel_phase(torch, topk, graph_index, ivf, here, *parallel_inputs(torch, graph_index, ivf))
         return 0
@@ -3883,30 +4004,31 @@ def main() -> int:
             drivers_phase(torch, topk, ivf, here, work_dir)
         return 0
 
-    first_k = first_k_phase(torch, graph_index, sweep=args.sweep)
+    first_k = lap("first-k", first_k_phase(torch, graph_index, sweep=args.sweep))
     if args.graph:
         graph_scale_phase(torch, graph_index)
         return 0
-    kern = kernel_phase(torch, topk, sweep=args.sweep)
-    ceil = ceiling_phase(torch, topk)
-    ivf_alone = ivf_phase(torch, topk, ivf, sweep=args.sweep)
+    kern = lap("kernels", kernel_phase(torch, topk, sweep=args.sweep))
+    ceil = lap("ceiling", ceiling_phase(torch, topk))
+    ivf_alone = lap("IVF alone", ivf_phase(torch, topk, ivf, sweep=args.sweep))
     if args.kernels:
         return 0
-    graph = graph_scale_phase(torch, graph_index)
-    main_path = main_path_phase(torch, topk, here)
-    par = parallel_phase(torch, topk, graph_index, ivf, here, main_path.pop("inputs"), graph,
-                         ivf_alone.pop("inputs"))
+    graph = lap("graph store", graph_scale_phase(torch, graph_index))
+    main_path = lap("main path", main_path_phase(torch, topk, here))
+    par = lap("parallel", parallel_phase(torch, topk, graph_index, ivf, here,
+                                         main_path.pop("inputs"), graph, ivf_alone.pop("inputs")))
     del graph
     import tempfile
 
     with tempfile.TemporaryDirectory(prefix="ragfin_smoke_") as work_dir:
-        integrity_phase(torch, work_dir)
-        hashed = hashed_phase(torch, topk, work_dir)
-        minilm_run = minilm_phase(torch, topk, work_dir)
-        train = train_phase(torch, topk, here, work_dir)
-        served = served_phase(torch, topk, graph_index, work_dir)
-        cli_run = cli_phase(torch, work_dir, here)
-        drivers = drivers_phase(torch, topk, ivf, here, work_dir, main_path["concurrent"])
+        lap("integrity", integrity_phase(torch, work_dir))
+        hashed = lap("hashed", hashed_phase(torch, topk, work_dir))
+        minilm_run = lap("minilm", minilm_phase(torch, topk, work_dir))
+        train = lap("train", train_phase(torch, topk, here, work_dir))
+        served = lap("served", served_phase(torch, topk, graph_index, work_dir))
+        cli_run = lap("cli", cli_phase(torch, work_dir, here))
+        drivers = lap("drivers", drivers_phase(torch, topk, ivf, here, work_dir,
+                                               main_path["concurrent"]))
     print(f"request p50: over the wire {served['wire_p50_ms']:.2f} ms, in process "
           f"{served['in_process_p50_ms']:.2f} ms (served engine), main path one at a time "
           f"{main_path['p50_alone_ms']:.2f} ms", flush=True)
@@ -3928,6 +4050,9 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": {"Q": 64, "N": kern["n"], "D": D, "k": r["k"]},
+            "by_q": {f"{variant} Q={q_n}": rows[(key, q_n)]
+                     for (key, q_n) in rows if key.startswith(name + "[") or key == name
+                     for variant in [key[len(name):].strip("[]") or "default"]},
         })
     r = ivf_alone["rows"][("f32 exact", 64)]
     table.append({
@@ -3940,6 +4065,7 @@ def main() -> int:
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         "shape": {"Q": 64, "block_q": IVF_BLOCK_Q, "N": ivf_alone["n"], "D": D, "cell": IVF_CELL,
                   "nprobe": IVF_NPROBE, "k": IVF_K, "cells": "float32"},
+        "by_q": {f"{tier} Q={q_n}": row for (tier, q_n), row in ivf_alone["rows"].items()},
     })
     table.append({
         "name": "first_k", "route": "cuda", "source": "ragfin_tpu_torch/csrc/first_k.cu",

@@ -24,15 +24,19 @@
 // N = 1M: 0.23 ms at 3.35 TB/s); from mm on, the product runs on the tensor
 // cores (f32/bf16 under that same bound at Q = 64; int8 at Q = 1024, 0.40
 // ms of s8 products at 1,979 TOP/s against a 0.12 ms read, is bound by its
-// operations); the stages above mm add the level-1 reductions of the
-// two-level selection (row maxima over the accumulators, a barrier per tile).
+// operations); the stages above mm add a reduction of every score in
+// registers, as the selection's gate compares every score with a register
+// threshold, with one combine across warps per probe tile.
 //
 // Design: the probe IS pass 1 (fused_pass1.cuh, template parameter STAGE):
 // the same chunk-of-tiles grid and the same staged slices and product, so a
 // change to pass 1 changes the probe with it. Only what follows the scored
-// tile differs: mm and mask (and mmint) read one accumulator, rowmax and
-// prologue (and rowmaxint) the sub-block maxima (and their columns) the
-// selection's gate computes. The TPU probes carry their sum from grid step
+// tile differs: mm and mask (and mmint) read one accumulator (and fold every
+// accumulator into a word stored only when a sink is passed, so that no
+// product is dropped: without it ptxas removed the products of the
+// accumulators no stage read, half of them at 64 query rows), rowmax and
+// prologue (and rowmaxint) keep each lane's best (and its column) in
+// registers across the probe tile and combine the warps' at its end. The TPU probes carry their sum from grid step
 // to grid step; here each block sums the probe tiles of its own chunk (a
 // chunk holds whole probe tiles) and writes one partial per (chunk, row); ceiling_reduce then adds the partials in
 // chunk order, so the result does not depend on how blocks were scheduled

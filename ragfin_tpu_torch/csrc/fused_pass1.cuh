@@ -1,12 +1,13 @@
 // Pass 1 of the fused cosine top-k kernels over an f32, bf16 or int8 corpus:
 // score a block's query rows against a run of kTN-column tiles on the tensor
-// cores and keep a running top-k per row with the two-level selection of
-// twolevel.cuh. Shared by fused_topk.cu and fused_topk_int8.cu, which walk a
-// contiguous chunk of the corpus, ivf_topk.cu, which walks the cell a probe
-// table names (PROBED), and ceiling.cu, which keeps the walk, the copies and
-// the product and puts a cheaper reduction in the selection's place (STAGE;
-// part_s, or part_i for the sums that stay integers, then holds one partial
-// sum per chunk and row).
+// cores and keep a running top-k per row: a gate in registers, candidate
+// queues in shared memory, drained in batches by bitonic sorts and merges
+// (queue_select.cuh). Shared by fused_topk.cu and fused_topk_int8.cu, which
+// walk a contiguous chunk of the corpus, ivf_topk.cu, which walks the cell a
+// probe table names (PROBED), and ceiling.cu, which keeps the walk, the
+// copies and the product and puts a cheaper reduction in the selection's
+// place (STAGE; part_s, or part_i for the sums that stay integers, then
+// holds one partial sum per chunk and row).
 //
 // Bound on an H100 at Q = 64, N = 1M, D = 384: the corpus read, 1.536 GB of
 // f32 in 0.4585 ms at 3.35 TB/s (bf16: 0.2293 ms; int8 with its column
@@ -18,7 +19,7 @@
 // not lack at the batch sizes it serves, and the design puts its effort into
 // keeping the copies in flight and the selection off the common path.
 //
-// Design. A block is 16 warps on one SM: eight producers and eight walkers.
+// Design. A block is 16 warps on one SM: eight producers and eight drainers.
 //  - Product (producers). The corpus columns are the M side of mma.sync (16
 //    per m-tile), the queries the N side (8 per n-tile), so Q <= 8 fills its
 //    tiles. Producer warp w owns columns (w % WC) * SUBW .. + SUBW - 1 of a
@@ -61,40 +62,46 @@
 //    rows are padded (corpus kTN + 8, int8 kTN + 16; queries Dp + 4, + 8 or,
 //    int8, + 16 bytes; the k-packed buffer 32 + 4 words) so the fragment
 //    loads and the transpose's stores hit 32 banks.
-//  - Level 1 of the two-level selection (producers, twolevel.cuh). After a
-//    tile's last slice each producer warp takes, from its accumulators, every
-//    row's maximum over its SUBW columns (the sub-block maxima, a shuffle
-//    over the eight lanes of a row) and compares it with the row's k-th
-//    score; only a warp with an improving row writes its scores to the
-//    shared score tile. The maxima and the tile go to the walkers through
-//    one of two buffers (named barriers: full, empty), so the next tile's
-//    product runs while the walkers select.
-//  - Level 2 (walkers). Walker warp w keeps rows w, w + 8, ... in its
-//    registers as sorted lists (RowList) and, per tile and row, walks the
-//    sub-blocks whose maximum beats the row's k-th score, lowest first: their
-//    candidates in successor order, each inserted while it beats the list's
-//    last entry, then the block is retired and the next improving one
-//    taken. The walkers publish each row's k-th score for the producers'
-//    gate; a value a tile or two old is lower, so the gate only writes more.
-//    Exactness of the strict > gates: a block walks its tiles in ascending
-//    column order (a chunk, or a split of one probed cell), and a tile's
-//    sub-blocks in ascending order, so every candidate's id is larger than
-//    every id already in the list. A candidate whose score only ties the
-//    k-th score therefore loses the tie, and a sub-block whose maximum does
-//    not beat the k-th score (which only rises) holds nothing that enters.
-//    The walk itself compares with better(), the pass-2 order.
+//  - The gate (producers). After a tile's last slice each producer lane
+//    compares its accumulators with a register copy of its rows' k-th
+//    scores, read from shared memory on every tile; __any_sync skips the
+//    rest when no lane of the warp has a candidate, so a tile that improves
+//    no row costs the comparisons and nothing else: no maxima, no barrier.
+//  - The queues (producers). A lane appends its candidates, (score, column),
+//    to its rows' queues in shared memory (kQCap entries a row, one
+//    atomicAdd per row and lane for the slots). Candidates that do not fit
+//    stay in the lane's registers (a mask over its fragment). At the next
+//    producer barrier (every slice already has one) the producers see
+//    whether any did not fit; then they hand the queue buffer to the
+//    drainers (named barrier kBarFull + b), take the other buffer (waiting on
+//    kBarEmpty + b' for its drain to end) and push what is left: a producer
+//    may stall on a drain, no candidate is dropped. At the end of the chunk
+//    the last buffer is handed over, marked final.
+//  - The drains (drainers). Drainer warp w keeps rows w, w + 8, ... in its
+//    registers as sorted lists (RowList) and, per handed-over buffer and
+//    row, bitonic-sorts the queue in better() order and merges it with the
+//    list (queue_select.cuh drain_queue), then publishes the row's k-th
+//    score for the producers' gate.
+//    Exactness of the strict > gate: a block walks its tiles in ascending
+//    column order (a chunk, or a split of one probed cell), so every
+//    candidate's id is larger than every id in the drained list. A value
+//    that only ties the list's k-th score therefore loses the tie to k
+//    entries and cannot enter; a published k-th score is a drained list's,
+//    and only rises, so a stale one is lower and the gate only lets more
+//    through; -inf never passes. The sort orders ties by id whatever order
+//    the queue holds them in.
 #pragma once
 
 #include <cuda_bf16.h>
 
 #include <type_traits>
 
+#include "queue_select.cuh"
 #include "topk_common.cuh"
 #include "twolevel.cuh"
 
 namespace ragfin {
 
-constexpr int kTS = kTN + 4;          // score-tile row stride (floats)
 constexpr int kSmemLimit = 232448;    // dynamic shared memory a block may use
 constexpr int kSinkWords = 512;       // dma-stage sink words per block (one per thread)
 constexpr int kIntMask = -2147483647; // the int stages' mask value, -(2^31) + 1
@@ -125,17 +132,19 @@ constexpr bool kIsInt8 = std::is_same<T, int8_t>::value;
 template <typename T>
 using QElem = std::conditional_t<kIsInt8<T>, int8_t, float>;
 
-// A block is kProducers threads that copy and multiply (eight warps) and
-// kWalkers that select (eight warps): one block per SM.
-constexpr int kProducers = 256, kWalkers = 256, kPass1Threads = kProducers + kWalkers;
-constexpr int kPWarps = kProducers / 32, kWWarps = kWalkers / 32;
+// A block is kProducers threads that copy, multiply and gate (eight warps)
+// and kDrainers that keep the lists (eight warps): one block per SM.
+constexpr int kProducers = 256, kDrainers = 256, kPass1Threads = kProducers + kDrainers;
+constexpr int kPWarps = kProducers / 32, kDWarps = kDrainers / 32;
 // Named barriers (0 is __syncthreads): the producers' own, and a full and an
-// empty barrier for each of the two score-tile buffers.
+// empty barrier for each of the two queue buffers.
 constexpr int kBarProducers = 1, kBarFull = 2, kBarEmpty = 4;
+// Queue entries a row holds per buffer (two slots of a warp array).
+constexpr int kQCap = 64;
 
-// Producer layout of a TQ-row block: WC column groups of SUBW columns (the
-// sub-blocks) times WQ query groups; RW rows per walker warp; kStages corpus
-// slices in the ring (three at TQ = 64, where shared memory is tightest).
+// Producer layout of a TQ-row block: WC column groups of SUBW columns times
+// WQ query groups; RW rows per drainer warp; kStages corpus slices in the
+// ring (three at TQ = 64, where shared memory is tightest).
 template <int TQ>
 struct Layout {
   static constexpr int kStages = TQ == 64 ? 3 : 4;
@@ -144,7 +153,7 @@ struct Layout {
   static constexpr int SUBW = kTN / WC;
   static constexpr int MT = SUBW / 16;
   static constexpr int NT = TQ / WQ / 8;
-  static constexpr int RW = TQ / kWWarps;
+  static constexpr int RW = TQ / kDWarps;
   static_assert(MT >= 1 && NT >= 1 && WQ * WC == kPWarps && RW >= 1, "layout");
 };
 
@@ -154,16 +163,17 @@ __host__ __device__ constexpr int padded_depth(int D) {
 }
 
 // Dynamic shared memory of one block (ops/topk.py _pass1_smem mirrors it):
-// queries, the ring, for int8 two k-packed buffers, two buffers of sub-block
-// maxima and their columns, the ceiling sums, and for the selection two score
-// tiles and the k-th scores.
+// queries, the ring, for int8 two k-packed buffers, the ceiling sums, and
+// for the selection two queue buffers with their counts, the k-th scores and
+// four control words, for the ceiling stages two buffers of per-warp row
+// maxima and their columns.
 template <typename T, int TQ, int STAGE>
 __host__ __device__ constexpr size_t pass1_smem(int D) {
   return sizeof(QElem<T>) * (size_t)TQ * (padded_depth<T>(D) + Slice<T>::kQPad) +
          sizeof(T) * (size_t)Layout<TQ>::kStages * Slice<T>::kDK * Slice<T>::kCS +
-         (kIsInt8<T> ? sizeof(unsigned) * 2 * kTN * kTBS : 0) +
-         (size_t)2 * TQ * Layout<TQ>::WC * 8 + (size_t)TQ * 12 +
-         (STAGE == kStageSelect ? sizeof(float) * (size_t)TQ * (2 * kTS + 1) : 0);
+         (kIsInt8<T> ? sizeof(unsigned) * 2 * kTN * kTBS : 0) + (size_t)TQ * 12 +
+         (STAGE == kStageSelect ? (size_t)TQ * (2 * kQCap * 8 + 2 * 4 + 4) + 16
+                                : (size_t)2 * TQ * Layout<TQ>::WC * 8);
 }
 
 // --- PTX wrappers ------------------------------------------------------------
@@ -311,8 +321,8 @@ __device__ __forceinline__ unsigned fold_word(unsigned w) {
   else return w;
 }
 
-// A walker warp's row lists move up one place (the first to the end):
-// its row loop works on lists[0] only, so one copy of the walk's code runs
+// A drainer warp's row lists move up one place (the first to the end):
+// its row loop works on lists[0] only, so one copy of the drain's code runs
 // every row while the lists stay in registers (a runtime index would put
 // them in local memory, an unrolled loop would copy the code per row).
 template <int N, int KS>
@@ -335,7 +345,7 @@ fused_topk_pass1(const void* __restrict__ q, int Q, int D, const T* __restrict__
                  const float* __restrict__ cscale, const float* __restrict__ qscale,
                  long long ld, long long tile_stride, int bn, int n_phys, int limit, int k,
                  int tiles_per_chunk, ProbeWalk walk, CeilArgs ceil, float* __restrict__ part_s,
-                 int* __restrict__ part_i) {
+                 int* __restrict__ part_i, bool round_q) {
   using L = Layout<TQ>;
   using QT = QElem<T>;
   constexpr bool kInt8 = kIsInt8<T>;
@@ -345,10 +355,11 @@ fused_topk_pass1(const void* __restrict__ q, int Q, int D, const T* __restrict__
   constexpr int kCPR = kTN / kEPC;                   // copies per slice row
   constexpr int kCopies = kDK * kCPR / kProducers;   // copies per producer per slice
   constexpr bool kSelect = STAGE == kStageSelect;
-  // Stages whose tiles the walkers consume: the selection, and the ceiling
-  // stages that reduce the sub-block maxima per row.
-  constexpr bool kWalk = kSelect || STAGE == kCeilRowmax || STAGE == kCeilPrologue ||
-                         STAGE == kCeilRowmaxInt;
+  // Ceiling stages that reduce each row over a probe tile: every producer
+  // lane keeps its rows' best in registers across the probe tile, as the
+  // gate keeps its thresholds, and the warps combine once per probe tile.
+  constexpr bool kRowBest =
+      STAGE == kCeilRowmax || STAGE == kCeilPrologue || STAGE == kCeilRowmaxInt;
   // Ceiling sums kept in int32 (wrapping), written to part_i: the int
   // stages, and the int8 dma stage.
   constexpr bool kIntSum =
@@ -361,28 +372,34 @@ fused_topk_pass1(const void* __restrict__ q, int Q, int D, const T* __restrict__
   QT* qs = reinterpret_cast<QT*>(smem);                              // [TQ][QS]
   T* ring = reinterpret_cast<T*>(qs + (size_t)TQ * QS);              // [kStages][kDK][kCS]
   unsigned* kp = reinterpret_cast<unsigned*>(ring + kStages * kDK * kCS);  // int8: [2][kTN][kTBS]
-  float* mx = reinterpret_cast<float*>(kp + (kInt8 ? 2 * kTN * kTBS : 0));  // [2][TQ][WC] sub-block maxima
-  int* ax = reinterpret_cast<int*>(mx + 2 * TQ * L::WC);             // [2][TQ][WC] their columns
-  float* csum = reinterpret_cast<float*>(ax + 2 * TQ * L::WC);       // [TQ] ceiling sums
-  float* cbest = csum + TQ;                                          // [TQ]
-  int* carg = reinterpret_cast<int*>(cbest + TQ);                    // [TQ]
+  float* csum = reinterpret_cast<float*>(kp + (kInt8 ? 2 * kTN * kTBS : 0));  // [TQ] ceiling sums
   int* csum_i = reinterpret_cast<int*>(csum);                        // the int sums' view
-  int* cbest_i = reinterpret_cast<int*>(cbest);
-  float* tile = reinterpret_cast<float*>(carg + TQ);                 // [2][TQ][kTS] (select)
-  // Each row's k-th score, written by the walkers and read by the
-  // producers' gate while they run: a value one or two tiles old is lower,
-  // so the gate stays conservative.
-  volatile float* kth = tile + 2 * TQ * kTS;                         // [TQ] (select)
+  unsigned char* rest = reinterpret_cast<unsigned char*>(csum + 3 * TQ);
+  // Ceiling stages: [2][TQ][WC] per-warp row maxima and their columns.
+  float* mx = reinterpret_cast<float*>(rest);
+  int* ax = reinterpret_cast<int*>(mx + 2 * TQ * L::WC);
+  // Selection: two queue buffers [2][TQ][kQCap] of scores and columns, their
+  // counts [2][TQ], each row's k-th score [TQ], published by the drainers and
+  // read by the producers' gate, and the control words: the overflow tags of
+  // the two latest push rounds and the final handoff's number plus one.
+  float* qbuf_s = reinterpret_cast<float*>(rest);
+  int* qbuf_i = reinterpret_cast<int*>(qbuf_s + 2 * TQ * kQCap);
+  int* qcnt = qbuf_i + 2 * TQ * kQCap;
+  volatile float* kth = reinterpret_cast<volatile float*>(qcnt + 2 * TQ);
+  volatile int* ovf = reinterpret_cast<volatile int*>(kth + TQ);  // [2]
+  volatile int* final_flag = ovf + 2;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int q0 = blockIdx.x * TQ;
   const int rows = min(TQ, Q - q0);
   const int chunk = blockIdx.y;
 
-  // Queries, zero past D and past the last row. For a bf16 corpus the block
-  // notes whether any query value is not a bf16 value (then it splits). The
-  // int8 queries are stored in the corpus fragments' k order: position
-  // s * kDK + 4 w + i holds d = s * kDK + w + 32 i.
+  // Queries, zero past D and past the last row; with round_q (the fast tier
+  // over a bf16 corpus) each rounded to the nearest bf16 value, as the plain
+  // version rounds them. For a bf16 corpus the block notes whether any query
+  // value is not a bf16 value (then it splits). The int8 queries are stored
+  // in the corpus fragments' k order: position s * kDK + 4 w + i holds
+  // d = s * kDK + w + 32 i.
   bool inexact = false;
   for (int idx = tid; idx < TQ * Dp; idx += kPass1Threads) {
     const int r = idx / Dp, dq = idx - r * Dp;
@@ -393,18 +410,28 @@ fused_topk_pass1(const void* __restrict__ q, int Q, int D, const T* __restrict__
                             ? static_cast<const int8_t*>(q)[(long long)(q0 + r) * D + d]
                             : (int8_t)0;
     } else {
-      const float v = r < rows && dq < D ? static_cast<const float*>(q)[(long long)(q0 + r) * D + dq]
-                                         : 0.f;
-      qs[r * QS + dq] = v;
-      if constexpr (std::is_same<T, __nv_bfloat16>::value)
+      float v = r < rows && dq < D ? static_cast<const float*>(q)[(long long)(q0 + r) * D + dq]
+                                   : 0.f;
+      if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+        if (round_q) v = __bfloat162float(__float2bfloat16_rn(v));
         inexact |= __bfloat162float(__float2bfloat16_rn(v)) != v;
+      }
+      qs[r * QS + dq] = v;
     }
   }
   for (int r = tid; r < TQ; r += kPass1Threads) {
     csum[r] = 0.f;
-    cbest[r] = -CUDART_INF_F;
-    carg[r] = 0;
-    if constexpr (kSelect) kth[r] = -CUDART_INF_F;
+    if constexpr (kSelect) {
+      kth[r] = -CUDART_INF_F;
+      qcnt[r] = 0;
+      qcnt[TQ + r] = 0;
+    }
+  }
+  if constexpr (kSelect) {
+    if (tid == 0) {
+      ovf[0] = ovf[1] = -1;
+      *final_flag = 0;
+    }
   }
   const bool split = __syncthreads_or(inexact);
 
@@ -414,7 +441,7 @@ fused_topk_pass1(const void* __restrict__ q, int Q, int D, const T* __restrict__
   const int block_tiles = max(0, min(t_begin + tiles_per_chunk, n_tiles) - t_begin);
 
   if (tid < kProducers) {
-    // ---------------- producers: copies, product, level 1 ----------------
+    // ---------------- producers: copies, product, gate, queues ----------------
     const int wc = warp % L::WC, wq = warp / L::WC;
     const int g = lane >> 2, t4 = lane & 3;
     const bool aligned = ld % kEPC == 0 && tile_stride % kEPC == 0 &&
@@ -487,21 +514,114 @@ fused_topk_pass1(const void* __restrict__ q, int Q, int D, const T* __restrict__
     } else {
       using Acc = std::conditional_t<kInt8, int, float>;
       Acc acc[L::MT][L::NT][4];
-      float fs[kInt8 ? L::MT : 1][kInt8 ? L::NT : 1][4];  // int8: the dequantised tile
+      float fs[L::MT][L::NT][4];  // int8: the dequantised tile
       const int cw = wc * L::SUBW;                          // the warp's first column
       const int r0 = wq * (TQ / L::WQ) + 2 * t4;            // row of acc[*][0][0]
       const QT* qw = qs + (wq * (TQ / L::WQ) + g) * QS;     // row g of the warp's queries
+
+      // The float scores S of the tile just scored: the accumulators, or for
+      // int8 the dequantised tile (written at the tile's end).
+      auto scores = [&]() -> float (&)[L::MT][L::NT][4] {
+        if constexpr (kInt8) return fs;
+        else return acc;
+      };
+
+      // Selection state, uniform over the producers: the queue buffer being
+      // filled (handoffs & 1), the handoffs so far and the push round; per
+      // lane, the candidates of the last scored tile not yet queued, and the
+      // first column of that tile.
+      int handoffs = 0, round = 0;
+      unsigned left = 0;
+      int left_col0 = 0;
+      // One push round: `want` of the tile at col0 into the current buffer;
+      // a lane with candidates that did not fit tags the round.
+      auto push = [&](unsigned want, int col0) -> unsigned {
+        ++round;
+        unsigned rest_bits = 0;
+        if (__any_sync(kFull, want != 0)) {
+          const int b = handoffs & 1;
+          rest_bits = push_fragment<L::MT, L::NT>(scores(), want, r0, col0 + cw + g,
+                                                   qbuf_s + b * TQ * kQCap,
+                                                   qbuf_i + b * TQ * kQCap, qcnt + b * TQ, kQCap);
+          if (rest_bits) ovf[round & 1] = round;
+        }
+        return rest_bits;
+      };
+      // Hand the current buffer to the drainers and take the other one, once
+      // its drain (handoff - 1) has ended.
+      auto hand_over = [&]() {
+        bar_arrive(kBarFull + (handoffs & 1), kPass1Threads);
+        ++handoffs;
+        if (handoffs >= 2) bar_sync(kBarEmpty + (handoffs & 1), kPass1Threads);
+      };
+      // Right after a producer barrier that follows a push round: while some
+      // lane's candidates did not fit, hand over and push them again.
+      auto settle = [&]() {
+        while (ovf[round & 1] == round) {
+          hand_over();
+          left = push(left, left_col0);
+          bar_sync(kBarProducers, kProducers);
+        }
+      };
+      // Ceiling row-best stages: each lane's best over its rows' columns of
+      // the current probe tile (and, prologue, its lowest column in it), and
+      // whether a probe tile's per-warp values await the combine.
+      float best[L::NT][2];
+      int best_i[L::NT][2], arg[L::NT][2];
+      bool combine_pending = false;
+      int combine_buf = 0;
+      // mm, mask, mmint: the XOR of every accumulator's bits, stored only
+      // when a sink is passed (never, from the wrappers): without a use,
+      // ptxas drops the products whose accumulators no stage reads (half of
+      // them at 64 rows), and these stages would time half a product.
+      unsigned keep = 0;
+      auto keep_all = [&]() {
+#pragma unroll
+        for (int mt = 0; mt < L::MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < L::NT; ++nt)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              if constexpr (kInt8) keep ^= (unsigned)acc[mt][nt][j];
+              else keep ^= __float_as_uint(acc[mt][nt][j]);
+            }
+      };
+      // The combine: the warps of column group 0, lanes g == 0, each hold
+      // rows r0 + nt * 8 + j: they fold the WC per-warp values into the sums.
+      auto combine = [&]() {
+        if (!combine_pending) return;
+        combine_pending = false;
+        if (wc != 0 || g != 0) return;
+        const float* mxb = mx + combine_buf * TQ * L::WC;
+        const int* axb = ax + combine_buf * TQ * L::WC;
+#pragma unroll
+        for (int nt = 0; nt < L::NT; ++nt)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int r = r0 + nt * 8 + j;
+            if (r >= rows) continue;
+            if constexpr (STAGE == kCeilRowmaxInt) {
+              const int* mxi = reinterpret_cast<const int*>(mxb);
+              int v = mxi[r * L::WC];
+              for (int w = 1; w < L::WC; ++w) v = max(v, mxi[r * L::WC + w]);
+              csum_i[r] = wrap_add(csum_i[r], v);
+            } else {
+              float v = mxb[r * L::WC];
+              int a = axb[r * L::WC];
+              for (int w = 1; w < L::WC; ++w)
+                if (better(mxb[r * L::WC + w], axb[r * L::WC + w], v, a)) {
+                  v = mxb[r * L::WC + w];
+                  a = axb[r * L::WC + w];
+                }
+              csum[r] += v;
+              if constexpr (STAGE == kCeilPrologue) csum[r] += (float)a;
+            }
+          }
+      };
+
       for (int step = 0; step < steps; ++step) {
         const int slice = step % n_slices;
         const int d0 = slice * kDK;
-        if (slice == 0) {
-#pragma unroll
-          for (int mt = 0; mt < L::MT; ++mt)
-#pragma unroll
-            for (int nt = 0; nt < L::NT; ++nt)
-#pragma unroll
-              for (int j = 0; j < 4; ++j) acc[mt][nt][j] = 0;
-        }
         cp_async_wait<kStages - 2>();
         if constexpr (kInt8) {
           // The thread's own pieces of slice `step` have landed, and it read
@@ -526,6 +646,19 @@ fused_topk_pass1(const void* __restrict__ q, int Q, int D, const T* __restrict__
           bar_sync(kBarProducers, kProducers);  // slice `step` landed; slice step - 1 is read
           if (step + kStages - 1 < steps) issue(step + kStages - 1);
           else cp_async_commit();
+        }
+        if (slice == 0) {
+          // Every push of the tile before has landed (the barrier above):
+          // settle its overflow while its scores are still in registers,
+          // and combine the last probe tile's per-warp maxima.
+          if constexpr (kSelect) settle();
+          if constexpr (kRowBest) combine();
+#pragma unroll
+          for (int mt = 0; mt < L::MT; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < L::NT; ++nt)
+#pragma unroll
+              for (int j = 0; j < 4; ++j) acc[mt][nt][j] = 0;
         }
 
         const T* cs = ring + (step % kStages) * kDK * kCS;
@@ -606,10 +739,12 @@ fused_topk_pass1(const void* __restrict__ q, int Q, int D, const T* __restrict__
         // (h = 0, 1) of rows r0 + nt * 8 + j (j = 0, 1): acc[mt][nt][2h + j].
         const int tl = step / n_slices;  // the tile's place in the block's walk
         const int col0 = (t_begin + tl) * kTN;
-        const bool probe_first = (col0 / kTN) % ceil.block_tiles == 0;
-        const int buf = tl & 1;
+        const int sub = (col0 / kTN) % ceil.block_tiles;  // the tile's place in its probe tile
+        const bool probe_first = sub == 0;
+        const bool probe_last = sub == ceil.block_tiles - 1 || col0 + kTN >= n_phys;
         if constexpr (STAGE == kCeilMmInt) {
           // The raw int32 sum of column 0 of the probe tile, wrapping.
+          keep_all();
           if (wc == 0 && g == 0 && probe_first) {
 #pragma unroll
             for (int nt = 0; nt < L::NT; ++nt)
@@ -621,36 +756,37 @@ fused_topk_pass1(const void* __restrict__ q, int Q, int D, const T* __restrict__
           }
           continue;
         } else if constexpr (STAGE == kCeilRowmaxInt) {
-          // The raw int32 row maxima over the warp's columns, masked with
-          // kIntMask, handed to the walkers as int bits.
-          int* mxb = reinterpret_cast<int*>(mx) + buf * TQ * L::WC;
-          int m[L::NT][2];
+          // The raw int32 row maxima over the warp's columns of the probe
+          // tile, masked with kIntMask, kept per lane until its last tile.
 #pragma unroll
           for (int nt = 0; nt < L::NT; ++nt)
 #pragma unroll
             for (int j = 0; j < 2; ++j) {
-              int v = kIntMask;
+              int v = probe_first ? kIntMask : best_i[nt][j];
 #pragma unroll
               for (int mt = 0; mt < L::MT; ++mt)
 #pragma unroll
                 for (int h = 0; h < 2; ++h)
                   if (col0 + cw + g + mt * 16 + 8 * h < limit) v = max(v, (int)acc[mt][nt][2 * h + j]);
-              m[nt][j] = lanes_max_int<4>(v);
+              best_i[nt][j] = v;
             }
-          if (tl >= 2) bar_sync(kBarEmpty + buf, kPass1Threads);
-          if (g == 0) {
+          if (probe_last) {
+            combine_buf ^= 1;
+            int* mxi = reinterpret_cast<int*>(mx) + combine_buf * TQ * L::WC;
 #pragma unroll
             for (int nt = 0; nt < L::NT; ++nt)
 #pragma unroll
-              for (int j = 0; j < 2; ++j) mxb[(r0 + nt * 8 + j) * L::WC + wc] = m[nt][j];
+              for (int j = 0; j < 2; ++j) {
+                const int m = lanes_max_int<4>(best_i[nt][j]);
+                if (g == 0) mxi[(r0 + nt * 8 + j) * L::WC + wc] = m;
+              }
+            combine_pending = true;
           }
-          bar_arrive(kBarFull + buf, kPass1Threads);
           continue;
         }
         // The float scores S: the accumulators, or for int8 int -> f32 times
         // the column scale (PROBED: times the row scale, then the column
         // scale, left to right, as ragfin_tpu/ops/ivf.py orders it per tile).
-        float (*sp)[L::MT][L::NT][4];
         if constexpr (kInt8) {
           float csc[L::MT][2];
 #pragma unroll
@@ -675,13 +811,11 @@ fused_topk_pass1(const void* __restrict__ q, int Q, int D, const T* __restrict__
                   fs[mt][nt][2 * h + j] = __fmul_rn(v, csc[mt][h]);
                 }
             }
-          sp = &fs;
-        } else {
-          sp = &acc;
         }
-        float (&S)[L::MT][L::NT][4] = *sp;
+        float (&S)[L::MT][L::NT][4] = scores();
         if constexpr (STAGE == kCeilMm || STAGE == kCeilMask) {
           // Column 0 of the probe tile: lane g = 0 of column group 0, h = 0.
+          keep_all();
           if (wc == 0 && g == 0 && probe_first) {
 #pragma unroll
             for (int nt = 0; nt < L::NT; ++nt)
@@ -704,155 +838,131 @@ fused_topk_pass1(const void* __restrict__ q, int Q, int D, const T* __restrict__
               for (int j = 0; j < 4; ++j)
                 if (col0 + cw + g + mt * 16 + (j >> 1) * 8 >= limit) S[mt][nt][j] = -CUDART_INF_F;
         }
-        // Level 1: each row's maximum over the warp's SUBW columns (and, for
-        // the prologue, its lowest column), in every lane of the row's group.
-        float m[L::NT][2];
-        int am[L::NT][2];
-#pragma unroll
-        for (int nt = 0; nt < L::NT; ++nt)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            float v = -CUDART_INF_F;
-            int a = kIdSentinel;
-#pragma unroll
-            for (int mt = 0; mt < L::MT; ++mt)
-#pragma unroll
-              for (int h = 0; h < 2; ++h) {
-                if constexpr (STAGE == kCeilPrologue) {
-                  const int c = cw + mt * 16 + g + 8 * h;  // lowest column on a tie
-                  if (better(S[mt][nt][2 * h + j], c, v, a)) {
-                    v = S[mt][nt][2 * h + j];
-                    a = c;
-                  }
-                } else {
-                  v = fmaxf(v, S[mt][nt][2 * h + j]);
-                }
-              }
-            if constexpr (STAGE == kCeilPrologue) lanes_best<4>(v, a);
-            else v = lanes_max<4>(v);
-            m[nt][j] = v;
-            am[nt][j] = a;
-          }
-        // Hand the tile to the walkers through buffer tl % 2, once they have
-        // released it (tile tl - 2).
-        if (tl >= 2) bar_sync(kBarEmpty + buf, kPass1Threads);
-        float* mxb = mx + buf * TQ * L::WC;
         if constexpr (kSelect) {
-          // The gate: a warp writes its scores only if one of its rows
-          // improves on this tile.
-          bool hit = false;
+          // The gate: each value against its row's k-th score, in registers.
+          float th[L::NT][2];
 #pragma unroll
           for (int nt = 0; nt < L::NT; ++nt)
 #pragma unroll
             for (int j = 0; j < 2; ++j) {
               const int r = r0 + nt * 8 + j;
-              hit |= r < rows && m[nt][j] > kth[r];
+              th[nt][j] = r < rows ? kth[r] : CUDART_INF_F;
             }
-          if (__any_sync(kFull, hit)) {
-            float* tb = tile + buf * TQ * kTS;
+          unsigned want = 0;
 #pragma unroll
-            for (int mt = 0; mt < L::MT; ++mt)
+          for (int mt = 0; mt < L::MT; ++mt)
 #pragma unroll
-              for (int nt = 0; nt < L::NT; ++nt)
+            for (int nt = 0; nt < L::NT; ++nt)
 #pragma unroll
-                for (int j = 0; j < 4; ++j)
-                  tb[(r0 + nt * 8 + (j & 1)) * kTS + cw + mt * 16 + g + (j >> 1) * 8] =
-                      S[mt][nt][j];
-          }
-        }
-        if (g == 0) {
+              for (int j = 0; j < 4; ++j)
+                if (S[mt][nt][j] > th[nt][j & 1]) want |= 1u << ((mt * L::NT + nt) * 4 + j);
+          left = push(want, col0);
+          left_col0 = col0;
+        } else {
+          // kCeilRowmax / kCeilPrologue: each lane's best over its columns of
+          // the probe tile (the prologue: the lowest column of a tie, tiles
+          // and columns arriving in ascending order), combined per probe tile.
 #pragma unroll
           for (int nt = 0; nt < L::NT; ++nt)
 #pragma unroll
             for (int j = 0; j < 2; ++j) {
-              mxb[(r0 + nt * 8 + j) * L::WC + wc] = m[nt][j];
-              if constexpr (STAGE == kCeilPrologue)
-                ax[buf * TQ * L::WC + (r0 + nt * 8 + j) * L::WC + wc] = am[nt][j];
+              float v = probe_first ? -CUDART_INF_F : best[nt][j];
+              int a = probe_first ? kIdSentinel : arg[nt][j];
+#pragma unroll
+              for (int mt = 0; mt < L::MT; ++mt)
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                  if constexpr (STAGE == kCeilPrologue) {
+                    const int c = sub * kTN + cw + mt * 16 + g + 8 * h;
+                    if (better(S[mt][nt][2 * h + j], c, v, a)) {
+                      v = S[mt][nt][2 * h + j];
+                      a = c;
+                    }
+                  } else {
+                    v = fmaxf(v, S[mt][nt][2 * h + j]);
+                  }
+                }
+              best[nt][j] = v;
+              arg[nt][j] = a;
             }
+          if (probe_last) {
+            combine_buf ^= 1;
+#pragma unroll
+            for (int nt = 0; nt < L::NT; ++nt)
+#pragma unroll
+              for (int j = 0; j < 2; ++j) {
+                float v = best[nt][j];
+                int a = arg[nt][j];
+                if constexpr (STAGE == kCeilPrologue) lanes_best<4>(v, a);
+                else v = lanes_max<4>(v);
+                if (g == 0) {
+                  const int o = combine_buf * TQ * L::WC + (r0 + nt * 8 + j) * L::WC + wc;
+                  mx[o] = v;
+                  ax[o] = a;
+                }
+              }
+            combine_pending = true;
+          }
         }
-        bar_arrive(kBarFull + buf, kPass1Threads);
       }
       cp_async_wait<0>();
-    }
-  } else if constexpr (kWalk) {
-    // ---------------- walkers: level 2 ----------------
-    // Walker warp w takes rows w, w + kWWarps, ...; for the selection their
-    // running top-k lists live in its registers.
-    const int ww = warp - kPWarps;
-    RowList<KS> lists[kSelect ? L::RW : 1];
-#pragma unroll
-    for (int i = 0; i < (kSelect ? L::RW : 1); ++i) lists[i].init();
-    for (int tl = 0; tl < block_tiles; ++tl) {
-      const int buf = tl & 1;
-      const int col0 = (t_begin + tl) * kTN;
-      const float* mxb = mx + buf * TQ * L::WC;
-      bar_sync(kBarFull + buf, kPass1Threads);
-      if constexpr (kSelect) {
-        const float* tb = tile + buf * TQ * kTS;
-#pragma unroll 1
-        for (int i = 0; i < L::RW; ++i, rotate(lists)) {
-          const int r = ww + kWWarps * i;  // lists[0] is row r's
-          if (r >= rows) continue;
-          float mb = lane < L::WC ? mxb[r * L::WC + lane] : -CUDART_INF_F;
-          float ks;
-          int ki;
-          lists[0].entry(k - 1, ks, ki);
-          unsigned hits = improving_blocks(mb, ks, L::WC);
-          if (!hits) continue;
-          while (hits) {
-            const int b = lowest_block(hits);
-            const float v = lane < L::SUBW ? tb[r * kTS + b * L::SUBW + lane] : -CUDART_INF_F;
-            walk_block<KS>(lists[0], k, v, col0 + b * L::SUBW, ks, ki);
-            retire_block(mb, b);
-            hits = improving_blocks(mb, ks, L::WC);
-          }
-          if (lane == 0) kth[r] = ks;
-        }
-      } else {
-        // kCeilRowmax / kCeilPrologue / kCeilRowmaxInt: the row's maximum
-        // (and lowest arg-max) over the tile, then over the probe tile.
-        const int sub = (col0 / kTN) % ceil.block_tiles;
-        const bool first = sub == 0;
-        const bool last = sub == ceil.block_tiles - 1 || col0 + kTN >= n_phys;
-        for (int r = ww; r < rows; r += kWWarps) {
-          if constexpr (STAGE == kCeilRowmaxInt) {
-            const int* mxi = reinterpret_cast<const int*>(mxb);
-            const int v = lanes_max_int<1>(lane < L::WC ? mxi[r * L::WC + lane] : kIntMask);
-            if (lane == 0) {
-              if (first || v > cbest_i[r]) cbest_i[r] = v;
-              if (last) csum_i[r] = wrap_add(csum_i[r], cbest_i[r]);
-            }
-            continue;
-          }
-          float v = lane < L::WC ? mxb[r * L::WC + lane] : -CUDART_INF_F;
-          int a = STAGE == kCeilPrologue && lane < L::WC ? ax[buf * TQ * L::WC + r * L::WC + lane]
-                                                          : kIdSentinel;
-          lanes_best<1>(v, a);
-          if (lane == 0) {
-            // Tiles arrive in ascending column order: strict > keeps the
-            // lowest column of the probe tile on a tie.
-            if (first || v > cbest[r]) {
-              cbest[r] = v;
-              carg[r] = sub * kTN + a;
-            }
-            if (last) {
-              csum[r] += cbest[r];
-              if constexpr (STAGE == kCeilPrologue) csum[r] += (float)carg[r];
-            }
-          }
-        }
+      if constexpr (STAGE == kCeilMm || STAGE == kCeilMask || STAGE == kCeilMmInt) {
+        if (ceil.sink != nullptr)
+          ceil.sink[((long long)blockIdx.y * gridDim.x + blockIdx.x) * kSinkWords + tid] = keep;
       }
-      // Release the buffer unless no producer waits for it any more.
-      if (tl + 2 < block_tiles) bar_arrive(kBarEmpty + buf, kPass1Threads);
+      if constexpr (kSelect) {
+        // The last tile's pushes, then the final handoff, and the wait for
+        // the drain before it, whose release nothing else consumes.
+        bar_sync(kBarProducers, kProducers);
+        settle();
+        if (tid == 0) *final_flag = handoffs + 1;  // which handoff is the final one
+        bar_arrive(kBarFull + (handoffs & 1), kPass1Threads);
+        if (handoffs >= 1) bar_sync(kBarEmpty + ((handoffs - 1) & 1), kPass1Threads);
+      }
+      if constexpr (kRowBest) {
+        bar_sync(kBarProducers, kProducers);
+        combine();
+      }
     }
-    if constexpr (kSelect) {
+  } else if constexpr (kSelect) {
+    // ---------------- drainers: the lists ----------------
+    // Drainer warp w takes rows w, w + kDWarps, ...; their running top-k
+    // lists live in its registers. Per handed-over buffer: sort each row's
+    // queue and merge it into the row's list, publish the k-th score, empty
+    // the queue, and release the buffer unless it was the final one.
+    const int dw = warp - kPWarps;
+    RowList<KS> lists[L::RW];
+#pragma unroll
+    for (int i = 0; i < L::RW; ++i) lists[i].init();
+    for (int h = 0;; ++h) {
+      const int b = h & 1;
+      bar_sync(kBarFull + b, kPass1Threads);
+      // The flag names the final handoff: read for handoff h - 1, it may
+      // already hold h + 1, written while that drain runs.
+      const bool last = *final_flag == h + 1;
 #pragma unroll 1
       for (int i = 0; i < L::RW; ++i, rotate(lists)) {
-        const int r = ww + kWWarps * i;
+        const int r = dw + kDWarps * i;  // lists[0] is row r's
         if (r >= rows) continue;
-        const long long o = ((long long)chunk * Q + q0 + r) * k;
-        lists[0].store(part_s + o, part_i + o, k);
+        const int n = min(qcnt[b * TQ + r], kQCap);
+        if (n == 0) continue;
+        const int o = (b * TQ + r) * kQCap;
+        drain_queue<KS, kQCap / 32>(lists[0].s, lists[0].i, qbuf_s + o, qbuf_i + o, n, k);
+        const float ks = list_kth<KS>(lists[0].s, k);
+        if (lane == 0) {
+          kth[r] = ks;
+          qcnt[b * TQ + r] = 0;
+        }
       }
+      if (last) break;
+      bar_arrive(kBarEmpty + b, kPass1Threads);
+    }
+#pragma unroll 1
+    for (int i = 0; i < L::RW; ++i, rotate(lists)) {
+      const int r = dw + kDWarps * i;
+      if (r >= rows) continue;
+      const long long o = ((long long)chunk * Q + q0 + r) * k;
+      lists[0].store(part_s + o, part_i + o, k);
     }
   }
   if constexpr (!kSelect) {
@@ -874,7 +984,7 @@ cudaError_t launch_pass1(const void* q, int Q, int D, const void* ct, long long 
                          int tiles_per_chunk, int n_chunks, float* part_s, int* part_i,
                          cudaStream_t stream, ProbeWalk walk = ProbeWalk{},
                          CeilArgs ceil = CeilArgs{}, const float* cscale = nullptr,
-                         const float* qscale = nullptr) {
+                         const float* qscale = nullptr, bool round_q = false) {
   const size_t smem = pass1_smem<T, TQ, STAGE>(D);
   if (smem > (size_t)kSmemLimit || k > 32 * KS) return cudaErrorInvalidValue;
   constexpr bool kScaled = STAGE != kCeilDma && STAGE != kCeilMmInt && STAGE != kCeilRowmaxInt;
@@ -887,7 +997,7 @@ cudaError_t launch_pass1(const void* q, int Q, int D, const void* ct, long long 
   dim3 grid((Q + TQ - 1) / TQ, n_chunks);
   kernel<<<grid, kPass1Threads, smem, stream>>>(q, Q, D, static_cast<const T*>(ct), cscale, qscale,
                                            ld, tile_stride, bn, n_phys, limit, k,
-                                           tiles_per_chunk, walk, ceil, part_s, part_i);
+                                           tiles_per_chunk, walk, ceil, part_s, part_i, round_q);
   return cudaGetLastError();
 }
 

@@ -21,8 +21,8 @@
 // Design: fused_topk.cu's, on the same pass 1 (fused_pass1.cuh, T = int8_t):
 // a cp.async ring of corpus slices, the byte transpose into a k-packed
 // buffer that mma.sync reads, int -> f32 times the column scale per tile,
-// the two-level selection (twolevel.cuh), then the merge of the chunks'
-// lists (topk_common.cuh merge_partials) with the row scale.
+// the gate, queues and drains (queue_select.cuh), then the merge of the
+// chunks' lists by bound (queue_select.cuh merge_bound) with the row scale.
 #include "fused_pass1.cuh"
 
 
@@ -31,7 +31,7 @@ using namespace ragfin;
 // q8 [Q, D] int8 and qscale [Q] f32 from ops/quantize.py; cscale holds one
 // f32 per physical column (flat [1, N] or tile-major [n_tiles, 1, bn], both
 // contiguous). D must be a multiple of 4. tq: 8, 32 or 64 query rows per
-// block (ops/topk.py _int8_tile). Returns the first CUDA error.
+// block (ops/topk.py _tile). Returns the first CUDA error.
 extern "C" int ragfin_fused_topk_int8(const int8_t* q8, const float* qscale, int Q, int D,
                                       const int8_t* ct, const float* cscale, long long ld,
                                       long long tile_stride, int bn, int n_phys, int limit,

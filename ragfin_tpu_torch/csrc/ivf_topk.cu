@@ -27,12 +27,12 @@
 // run in any order here, so nothing is carried: the cells ARE the
 // tile-major corpus layout of fused_topk.cu (bn = cell, a column's global
 // index = its permuted id), so pass 1 is that kernel's pass 1
-// (fused_pass1.cuh: mma.sync products, a cp.async ring, the two-level
-// selection) with the block's tile run taken from the probe table
+// (fused_pass1.cuh: mma.sync products, a cp.async ring, the gate, queues
+// and drains) with the block's tile run taken from the probe table
 // (ProbeWalk, topk_common.cuh): block (query sub-tile, probe position x
 // split) scores its TQ rows against its share of one probed cell, in
 // ascending column order, and writes a sorted partial list; pass 2
-// (merge_partials) merges the nprobe * splits lists of each row. better()
+// (merge_bound) merges the nprobe * splits lists of each row. better()
 // is a strict total order on (score, permuted id), so the result is the
 // ascending walk's whatever order the blocks ran in. `splits` cuts a cell
 // over several blocks so that a single query tile still fills the card.

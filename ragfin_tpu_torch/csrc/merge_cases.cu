@@ -6,9 +6,11 @@
 // sub-blocks of 128 columns, a [64, 128] f32 result (ops/merge_cases.py says
 // what each case computes). On the TPU the cases asked whether Mosaic could
 // lower each operation of ragfin_tpu/ops/topk.py:_merge_tile_twolevel; here
-// they run the device functions of twolevel.cuh that pass 1 of the fused and
-// pruned kernels selects with, so each is a unit test of that selection on
-// the card, bit for bit against its plain version.
+// the nine run the device functions of twolevel.cuh, and four more run the
+// primitives of the selection that pass 1 and pass 2 of the fused and pruned
+// kernels use (queue_select.cuh: the queue push, the bitonic sort, the
+// bitonic merge, pass 2's bound filter), so each is a unit test of that
+// selection on the card, bit for bit against its plain version.
 //
 // Bound on an H100: 64 KB in, 32 KB out, about 30 ns of memory; one block,
 // so a launch's few microseconds are the whole time. No request path runs
@@ -18,6 +20,7 @@
 // reduction over rows (any, min) is a block barrier (__syncthreads_or, or an
 // atomicMin in shared memory between two barriers); everything per row is
 // the warp's, as in pass 1.
+#include "queue_select.cuh"
 #include "twolevel.cuh"
 
 using namespace ragfin;
@@ -38,7 +41,44 @@ enum Case : int {
   kWhileLoopM = 6,
   kNestedInsert = 7,
   kNestedWhile = 8,
+  kQueuePush = 9,
+  kBitonicSort = 10,
+  kBitonicMerge = 11,
+  kBoundFilter = 12,
 };
+
+// The queue push case: pass 1's producer layout at 64 rows (Layout<64> of
+// fused_pass1.cuh: four column groups of 32 by two query groups, each lane
+// an m16n8 fragment of 2 x 4 tiles), the tile's two halves as two tiles,
+// a small queue so that rows overflow it, and a threshold of 0.5.
+constexpr int kPMT = 2, kPNT = 4, kPWC = 4, kPSub = 32, kPushCap = 16;
+constexpr float kPushAbove = 0.5f;
+// The bound filter case: each row's four 64-column quarters are the chunks,
+// each keeping its best kPartK.
+constexpr int kChunks = 4, kChunkCols = kCols / kChunks, kPartK = 16;
+
+// Row r's 32 * S entries from column c0 on, slot-major (id = the column).
+template <int S>
+__device__ __forceinline__ void load_row(const float* x, int r, int c0, float (&s)[S], int (&i)[S]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int t = 0; t < S; ++t) {
+    i[t] = c0 + t * 32 + lane;
+    s[t] = x[r * kCols + i[t]];
+  }
+}
+
+// Entries 0..63 of a sorted slot-major list: ids (as f32) to out[r][0..63],
+// scores to out[r][64..127].
+__device__ __forceinline__ void write_sorted(float* out, int r, const float (&s)[2],
+                                             const int (&i)[2]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+    out[r * kOut + t * 32 + lane] = __int2float_rn(i[t]);
+    out[r * kOut + 64 + t * 32 + lane] = s[t];
+  }
+}
 
 // The minimum of every thread's v over the block.
 __device__ __forceinline__ int block_min(int v, int* slot) {
@@ -63,7 +103,7 @@ __device__ __forceinline__ float gate(const float* x, int r) {
 }
 
 template <int CASE>
-__global__ void __launch_bounds__(kThreads) merge_case_kernel(const float* __restrict__ x,
+__global__ void __launch_bounds__(kThreads, 1) merge_case_kernel(const float* __restrict__ x,
                                                               float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* buf = reinterpret_cast<float*>(smem);                      // [kNb][kRows][kSub]
@@ -142,6 +182,126 @@ __global__ void __launch_bounds__(kThreads) merge_case_kernel(const float* __res
       ++steps;
     }
     for (int idx = tid; idx < kRows * kOut; idx += blockDim.x) out[idx] = (float)steps;
+  } else if constexpr (CASE == kQueuePush) {
+    // Every column above the threshold is queued exactly once: each handed
+    // over queue is counted into seen[row][column] (in buf) and emptied, and
+    // what did not fit is pushed again.
+    int* seen = reinterpret_cast<int*>(buf);                   // [kRows][kCols]
+    int* qcnt = slot + 1;                                      // [kRows]
+    float* q_s = reinterpret_cast<float*>(qcnt + kRows + 3);   // [kRows][kPushCap]
+    int* q_i = reinterpret_cast<int*>(q_s + kRows * kPushCap);
+    for (int idx = tid; idx < kRows * kCols; idx += blockDim.x) seen[idx] = 0;
+    for (int r = tid; r < kRows; r += blockDim.x) qcnt[r] = 0;
+    const int wc = warp % kPWC, wq = warp / kPWC, g = lane >> 2, t4 = lane & 3;
+    const int r0 = wq * (kRows / 2) + 2 * t4;
+    // The lane's fragment of the tile at col0 (read again for every round,
+    // so that no register array lives across the rounds' barriers).
+    auto push = [&](int col0, unsigned want) -> unsigned {
+      float S[kPMT][kPNT][4];
+#pragma unroll
+      for (int mt = 0; mt < kPMT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < kPNT; ++nt)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            S[mt][nt][j] = x[(r0 + nt * 8 + (j & 1)) * kCols + col0 + wc * kPSub + mt * 16 + g +
+                             (j >> 1) * 8];
+      return push_fragment<kPMT, kPNT>(S, want, r0, col0 + wc * kPSub + g, q_s, q_i, qcnt,
+                                       kPushCap);
+    };
+#pragma unroll 1
+    for (int col0 = 0; col0 < kCols; col0 += kOut) {
+      unsigned want = 0;
+#pragma unroll
+      for (int mt = 0; mt < kPMT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < kPNT; ++nt)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (x[(r0 + nt * 8 + (j & 1)) * kCols + col0 + wc * kPSub + mt * 16 + g +
+                  (j >> 1) * 8] > kPushAbove)
+              want |= 1u << ((mt * kPNT + nt) * 4 + j);
+      __syncthreads();
+      unsigned left = push(col0, want);
+      while (true) {
+        const bool more = __syncthreads_or(left != 0);
+        for (int r = warp; r < kRows; r += kWarps) {
+          const int n = min(qcnt[r], kPushCap);
+          if (lane < n) atomicAdd(seen + r * kCols + q_i[r * kPushCap + lane], 1);
+        }
+        __syncthreads();
+        for (int r = tid; r < kRows; r += blockDim.x) qcnt[r] = 0;
+        __syncthreads();
+        if (!more) break;
+        left = push(col0, left);
+      }
+    }
+    for (int idx = tid; idx < kRows * kOut; idx += blockDim.x) {
+      const int r = idx / kOut, c = idx - r * kOut;
+      out[idx] = __int2float_rn(seen[r * kCols + c] + 2 * seen[r * kCols + c + kOut]);
+    }
+  } else if constexpr (CASE == kBitonicSort) {
+    // Each row's 256 entries sorted; its best 64.
+    for (int r = warp; r < kRows; r += kWarps) {
+      float s[kCols / 32];
+      int i[kCols / 32];
+      load_row<kCols / 32>(x, r, 0, s, i);
+      sort_slots<kCols / 32>(s, i);
+      write_sorted(out, r, {s[0], s[1]}, {i[0], i[1]});
+    }
+  } else if constexpr (CASE == kBitonicMerge) {
+    // The best 64 of the first half, sorted, as a list; the second half,
+    // sorted, as a queue; the list becomes the best 64 of both.
+    for (int r = warp; r < kRows; r += kWarps) {
+      float ls[kSub / 32], qs[kSub / 32];
+      int li[kSub / 32], qi[kSub / 32];
+      load_row<kSub / 32>(x, r, 0, ls, li);
+      load_row<kSub / 32>(x, r, kSub, qs, qi);
+      sort_slots<kSub / 32>(ls, li);
+      sort_slots<kSub / 32>(qs, qi);
+      float l2[2] = {ls[0], ls[1]};
+      int i2[2] = {li[0], li[1]};
+      merge_sorted_into<2, kSub / 32>(l2, i2, qs, qi);
+      write_sorted(out, r, l2, i2);
+    }
+  } else if constexpr (CASE == kBoundFilter) {
+    // Pass 2 over the row's four quarters as chunks: each chunk's best
+    // kPartK (sorted; -inf entries keep their columns) as partial lists
+    // [chunk][row][kPartK], the bound, the survivors merged. Out: ids, then
+    // scores of the best kPartK, the bound, the survivor count.
+    float* part_s = buf;                                          // [kChunks][kRows][kPartK]
+    int* part_i = reinterpret_cast<int*>(part_s + kChunks * kRows * kPartK);
+    float* q_s = reinterpret_cast<float*>(part_i + kChunks * kRows * kPartK);  // [kWarps][128]
+    int* q_i = reinterpret_cast<int*>(q_s + kWarps * 128);
+    for (int r = warp; r < kRows; r += kWarps) {
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c) {
+        float s[kChunkCols / 32];
+        int i[kChunkCols / 32];
+        load_row<kChunkCols / 32>(x, r, c * kChunkCols, s, i);
+        sort_slots<kChunkCols / 32>(s, i);
+        if (lane < kPartK) {
+          part_s[(c * kRows + r) * kPartK + lane] = s[0];
+          part_i[(c * kRows + r) * kPartK + lane] = i[0];
+        }
+      }
+      __syncwarp();
+      const float b = chunk_bound(part_s, kChunks, kRows, r, kPartK, 0, 1);
+      float ls[1] = {-CUDART_INF_F};
+      int li[1] = {kIdSentinel};
+      const int n = bound_merge<1, 4>(ls, li, part_s, part_i, kChunks, kRows, r, kPartK, 0, 1, b,
+                                      q_s + warp * 128, q_i + warp * 128);
+      for (int c = lane; c < kOut; c += 32) out[r * kOut + c] = 0.f;
+      __syncwarp();
+      if (lane < kPartK) {
+        out[r * kOut + lane] = __int2float_rn(li[0]);
+        out[r * kOut + kPartK + lane] = ls[0];
+      }
+      if (lane == 0) {
+        out[r * kOut + 2 * kPartK] = b;
+        out[r * kOut + 2 * kPartK + 1] = __int2float_rn(n);
+      }
+    }
   } else {  // kNestedInsert, kNestedWhile
 #pragma unroll
     for (int b = 0; b < kNb; ++b) stage_block(buf, x, kCols, b, kRows, kSub);
@@ -221,7 +381,10 @@ __global__ void __launch_bounds__(kThreads) merge_case_kernel(const float* __res
 
 template <int CASE>
 cudaError_t launch_case(const float* x, float* out, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * kNb * kRows * kSub + 16;
+  // The tile's worth of floats (the staged blocks; the push case's column
+  // counts; the bound case's partial lists), the push case's queues, and
+  // the block's words.
+  const size_t smem = sizeof(float) * kNb * kRows * kSub + 8 * kRows * kPushCap + 4 * (kRows + 4);
   auto kernel = merge_case_kernel<CASE>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -247,6 +410,10 @@ extern "C" int ragfin_merge_case(const float* x, float* out, int which, void* st
     case kWhileLoopM: return (int)launch_case<kWhileLoopM>(x, out, stream);
     case kNestedInsert: return (int)launch_case<kNestedInsert>(x, out, stream);
     case kNestedWhile: return (int)launch_case<kNestedWhile>(x, out, stream);
+    case kQueuePush: return (int)launch_case<kQueuePush>(x, out, stream);
+    case kBitonicSort: return (int)launch_case<kBitonicSort>(x, out, stream);
+    case kBitonicMerge: return (int)launch_case<kBitonicMerge>(x, out, stream);
+    case kBoundFilter: return (int)launch_case<kBoundFilter>(x, out, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

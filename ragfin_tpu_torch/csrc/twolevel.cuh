@@ -1,8 +1,9 @@
-// Two-level in-tile selection: the warp-level device functions that pass 1 of
-// the fused and pruned top-k kernels (fused_pass1.cuh) selects with, and that
-// merge_cases.cu runs one at a time as the card's counterpart of the Pallas
-// bisect cases (scripts/mosaic_bisect.py, the primitives of
-// ragfin_tpu/ops/topk.py:_merge_tile_twolevel).
+// Two-level in-tile selection: the warp-level device functions of the
+// Pallas bisect cases (scripts/mosaic_bisect.py, the primitives of
+// ragfin_tpu/ops/topk.py:_merge_tile_twolevel), which merge_cases.cu runs
+// one at a time; the row-maximum reductions (lanes_max, lanes_best) of the
+// ceiling stages; and RowList, the sorted list in a warp's registers that
+// pass 1's drainers keep (queue_select.cuh merges into it).
 //
 // Level 1 is a score tile cut into sub-blocks of columns; each row keeps the
 // maximum of each sub-block. Level 2 walks, for one row, only the sub-blocks
@@ -166,52 +167,6 @@ struct RowList {
     }
   }
 
-  // Merge a block sorted best first across the warp (lane j holds its j-th
-  // best, (-inf, INT32_MAX) past its candidates) into the list, which becomes
-  // the best k of both: the same list as inserting the block's candidates
-  // one by one. The list followed by the block reversed (and padded with
-  // empty slots) is a bitonic sequence of 64 * KS entries; its first merge
-  // step leaves the best 32 * KS, bitonic, in the list's own slots, and the
-  // remaining steps sort them (slot pairs in a lane, then lane pairs).
-  __device__ __forceinline__ void merge_sorted(float bs, int bi, int k) {
-    const int lane = threadIdx.x & 31;
-    const float rs = __shfl_sync(kFull, bs, 31 - lane);
-    const int ri = __shfl_sync(kFull, bi, 31 - lane);
-    if (better(rs, ri, s[KS - 1], i[KS - 1])) {
-      s[KS - 1] = rs;
-      i[KS - 1] = ri;
-    }
-#pragma unroll
-    for (int m = KS / 2; m >= 1; m >>= 1)
-#pragma unroll
-      for (int t = 0; t < KS; ++t)
-        if ((t & m) == 0 && better(s[t + m], i[t + m], s[t], i[t])) {
-          const float ts = s[t];
-          const int ti = i[t];
-          s[t] = s[t + m];
-          i[t] = i[t + m];
-          s[t + m] = ts;
-          i[t + m] = ti;
-        }
-#pragma unroll
-    for (int st = 16; st >= 1; st >>= 1)
-#pragma unroll
-      for (int t = 0; t < KS; ++t) {
-        const float os = __shfl_xor_sync(kFull, s[t], st);
-        const int oi = __shfl_xor_sync(kFull, i[t], st);
-        if (((lane & st) == 0) == better(os, oi, s[t], i[t])) {
-          s[t] = os;
-          i[t] = oi;
-        }
-      }
-#pragma unroll
-    for (int t = 0; t < KS; ++t)
-      if (t * 32 + lane >= k) {
-        s[t] = -CUDART_INF_F;
-        i[t] = kIdSentinel;
-      }
-  }
-
   // The list's first k entries to S/I.
   __device__ __forceinline__ void store(float* S, int* I, int k) const {
     const int lane = threadIdx.x & 31;
@@ -223,72 +178,5 @@ struct RowList {
       }
   }
 };
-
-// Sort one value per lane into (score desc, id asc) order across the warp
-// (bitonic: 15 compare-exchange steps); lane j then holds the j-th best.
-// Ids are distinct, so better() decides every exchange.
-__device__ __forceinline__ void warp_sort(float& s, int& i) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int size = 2; size <= 32; size <<= 1)
-#pragma unroll
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      const float os = __shfl_xor_sync(kFull, s, stride);
-      const int oi = __shfl_xor_sync(kFull, i, stride);
-      // Runs of `size` lanes alternate direction; the last run (32) is
-      // descending. The lower lane of a pair keeps the better one in a
-      // descending run.
-      const bool keep_better = ((lane & stride) == 0) == ((lane & size) == 0);
-      if (keep_better == better(os, oi, s, i)) {
-        s = os;
-        i = oi;
-      }
-    }
-}
-
-// Walk one block of one row (level 2), one column per lane (v; -inf past the
-// block's end): insert its candidates, best first, while the next one beats
-// the list's k-th entry (kth_s, kth_i), which the walk keeps up to date.
-// col0 is the global id of lane 0's column. A -inf score never enters.
-// Only a column that beats the k-th entry on entry can enter (the k-th entry
-// only rises), so the walk takes those, one ballot: one or two of them (the
-// common case once the list is full) are inserted in successor order after
-// one comparison; more (a list still filling) are sorted by one warp_sort
-// and merged into the list at once (RowList::merge_sorted), which leaves the
-// same list as inserting them one by one.
-template <int KS>
-__device__ __forceinline__ void walk_block(RowList<KS>& list, int k, float v, int col0,
-                                           float& kth_s, int& kth_i) {
-  const int lane = threadIdx.x & 31;
-  const unsigned beat =
-      __ballot_sync(kFull, v > -CUDART_INF_F && better(v, col0 + lane, kth_s, kth_i));
-  if (beat == 0) return;
-  if (__popc(beat) <= 2) {
-    const int la = __ffs(beat) - 1, lb = __ffs(beat & (beat - 1)) - 1;  // lb = -1: one
-    float sa = __shfl_sync(kFull, v, la), sb = __shfl_sync(kFull, v, lb < 0 ? la : lb);
-    int ia = col0 + la, ib = col0 + lb;
-    if (lb >= 0 && better(sb, ib, sa, ia)) {
-      const float ts = sa;
-      sa = sb;
-      sb = ts;
-      const int ti = ia;
-      ia = ib;
-      ib = ti;
-    }
-    list.insert(sa, ia, k);
-    list.entry(k - 1, kth_s, kth_i);
-    if (lb >= 0 && better(sb, ib, kth_s, kth_i)) {
-      list.insert(sb, ib, k);
-      list.entry(k - 1, kth_s, kth_i);
-    }
-    return;
-  }
-  const bool mine = (beat >> lane) & 1u;
-  float s = mine ? v : -CUDART_INF_F;
-  int i = mine ? col0 + lane : kIdSentinel;
-  warp_sort(s, i);
-  list.merge_sorted(s, i, k);
-  list.entry(k - 1, kth_s, kth_i);
-}
 
 }  // namespace ragfin

@@ -32,7 +32,7 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 KERNELS = {
     "fused_topk": (
         "ragfin_fused_topk",
-        [_P, _I, _I, _P, _I, _LL, _LL, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+        [_P, _I, _I, _P, _I, _I, _LL, _LL, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     ),
     "fused_topk_int8": (
         "ragfin_fused_topk_int8",

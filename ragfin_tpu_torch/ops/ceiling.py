@@ -228,7 +228,7 @@ def ceiling(
         (chunks, nq), dtype=torch.int32 if int_partials else torch.float32, device=q.device
     )
     q_tiles = -(-nq // tq)
-    # One word per thread of a 512-thread block (the walker warps' stay zero).
+    # One word per thread of a 512-thread block (the drainer warps' stay zero).
     sink = (
         torch.zeros((chunks, q_tiles, 512), dtype=torch.int32, device=q.device)
         if read_check else None

@@ -44,10 +44,12 @@ from .topk import (
     INT32_MAX,
     NEG_INF,
     _check_precision,
+    _device_index,
     _fused_select,
     _int_scores,
     _pass1_tile,
     _select,
+    _sm_count,
 )
 
 _KERNEL_TILE_N = 128  # csrc kTN: a cell must be a multiple
@@ -403,7 +405,7 @@ def _splits(q_blocks: int, nprobe: int, tiles_per_cell: int, device: torch.devic
     limit), so a single query tile still fills the card and a large batch
     does not multiply its partial lists. (chip_smoke.py --sweep times the
     rule against fixed splits.)"""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    sms = _sm_count(_device_index(device))
     best = 1
     for s in range(1, tiles_per_cell + 1):
         if tiles_per_cell % s:

@@ -1,11 +1,12 @@
-"""The primitives of the two-level in-tile selection, one case at a time.
+"""The primitives of the in-tile selection, one case at a time.
 
 Counterpart of ``scripts/mosaic_bisect.py``: nine small kernels, each run on
 one ``[64, 256]`` f32 tile (two sub-blocks of 128 columns) and writing a
 ``[64, 128]`` f32 result. On the TPU they were compile-only bisects of the
 operations ``_merge_tile_twolevel`` (``ragfin_tpu/ops/topk.py``) needs. Here
-they are the card's unit tests of ``csrc/twolevel.cuh``, the device functions
-that pass 1 of the fused and pruned top-k kernels selects with:
+the nine are the card's unit tests of ``csrc/twolevel.cuh``, and four more
+(``NEW_CASES``) of ``csrc/queue_select.cuh``, the primitives that pass 1 and
+pass 2 of the fused and pruned top-k kernels select with:
 
 =========================== ==================================================
 ``submax``                  row maximum over the maxima of the two sub-blocks
@@ -26,6 +27,18 @@ that pass 1 of the fused and pruned top-k kernels selects with:
                             best entry
 ``nested_while``            the whole two-level merge: each improving block is
                             walked by successor in (score desc, id asc) order
+``queue_push``              pass 1's push: every column above 0.5 queued once,
+                            through 16-entry queues that overflow and are
+                            pushed again; ``[r, c]`` counts column ``c`` plus
+                            twice column ``c + 128``
+``bitonic_sort``            each row's 256 entries sorted (score desc, id asc):
+                            the best 64 ids (as f32), then their scores
+``bitonic_merge``           the best 64 of the first half, sorted, merged with
+                            the sorted second half: the same output
+``bound_filter``            pass 2 over the row's four 64-column quarters as
+                            chunks of 16: the best 16 ids, their scores, the
+                            bound (the largest chunk 16th score) and the count
+                            of entries at or above it
 =========================== ==================================================
 
 Float to int conversion truncates and saturates (``-inf`` is ``INT32_MIN``),
@@ -40,6 +53,7 @@ is a single f32 addition).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 NEG_INF = float("-inf")
@@ -47,10 +61,14 @@ INT32_MAX = 0x7FFFFFFF
 TQ, TN, SUB = 64, 256, 128
 NB = TN // SUB
 K = 10  # list length of the two insert cases
-CASES = (
+PALLAS_CASES = (
     "submax", "anyaxis0", "scalarmin_i32", "lanemin_then_scalar", "bufload", "retire",
     "whileloop_m", "nested_insert", "nested_while",
 )
+NEW_CASES = ("queue_push", "bitonic_sort", "bitonic_merge", "bound_filter")
+CASES = PALLAS_CASES + NEW_CASES
+PUSH_ABOVE = 0.5  # the queue push case's threshold
+CHUNKS, PART_K = 4, 16  # the bound filter case's chunks and their list length
 
 
 def _to_int32(v: torch.Tensor) -> torch.Tensor:
@@ -114,11 +132,43 @@ def _walk(x: torch.Tensor, per_block) -> torch.Tensor:
     return a_s[:, :1] + a_i[:, :1].to(torch.float32)
 
 
+def _best(scores: torch.Tensor, k: int, first_id: int = 0):
+    """Each row's best ``k`` in (score desc, id asc) order: scores, int64 ids."""
+    s, i = torch.sort(scores, dim=1, descending=True, stable=True)
+    return s[:, :k], i[:, :k] + first_id
+
+
+def _bound_filter(x: torch.Tensor) -> torch.Tensor:
+    w = TN // CHUNKS
+    parts = [_best(x[:, c * w : (c + 1) * w], PART_K, c * w) for c in range(CHUNKS)]
+    ps = torch.cat([s for s, _ in parts], 1)
+    pi = torch.cat([i for _, i in parts], 1)
+    bound = torch.stack([s[:, PART_K - 1] for s, _ in parts], 1).max(dim=1).values
+    keep = (ps > NEG_INF) & (ps >= bound[:, None])
+    ks = torch.where(keep, ps, torch.full_like(ps, NEG_INF))
+    order = torch.from_numpy(np.lexsort((pi.cpu().numpy(), -ks.cpu().double().numpy()), axis=1))
+    ks = torch.gather(ks, 1, order[:, :PART_K].to(x.device))
+    ki = torch.gather(torch.where(keep, pi, INT32_MAX), 1, order[:, :PART_K].to(x.device))
+    out = torch.zeros((TQ, 128), device=x.device)
+    out[:, :PART_K] = ki.to(torch.float32)
+    out[:, PART_K : 2 * PART_K] = ks
+    out[:, 2 * PART_K] = bound
+    out[:, 2 * PART_K + 1] = keep.sum(dim=1).to(torch.float32)
+    return out
+
+
 def merge_case_plain(name: str, x: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of one case: ``x [64, 256]`` f32 -> ``[64, 128]`` f32."""
     _check(name, x)
     x = x.float()
     full = lambda v: torch.full((TQ, 128), float(v), device=x.device)
+    if name == "queue_push":
+        return ((x[:, :SUB] > PUSH_ABOVE).float() + 2 * (x[:, SUB:] > PUSH_ABOVE).float())
+    if name in ("bitonic_sort", "bitonic_merge"):
+        s, i = _best(x, 64)
+        return torch.cat([i.to(torch.float32), s], 1)
+    if name == "bound_filter":
+        return _bound_filter(x)
     if name == "submax":
         m = torch.stack([x[:, b * SUB : (b + 1) * SUB].max(dim=1).values for b in range(NB)], 1)
         return m.max(dim=1, keepdim=True).values.expand(TQ, 128).contiguous()
@@ -150,37 +200,43 @@ def merge_case_plain(name: str, x: torch.Tensor) -> torch.Tensor:
     return _walk(x, merge).expand(TQ, 128).contiguous()
 
 
-def twolevel_topk_plain(scores: torch.Tensor, k: int, sub: int = 32, tile: int = 128,
-                        limit=None) -> tuple[torch.Tensor, torch.Tensor]:
+def queue_topk_plain(scores: torch.Tensor, k: int, cap: int = 64, tile: int = 128,
+                     limit=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain model of pass 1's selection (csrc/fused_pass1.cuh) over one
     block's walk of ``scores [R, N]`` in ascending column order: per tile of
     ``tile`` columns (columns at or past ``limit`` masked to -inf), each
-    row's sub-block maxima; the sub-blocks whose maximum beats the row's k-th
-    score are walked lowest first, their candidates best first (the
-    successor order), each inserted while it beats the list's last entry in
-    (score desc, id asc) order. A -inf score never enters. Returns ``(scores
-    [R, k], ids [R, k] int32)``; empty slots are (-inf, INT32_MAX)."""
+    score is gated against the row's k-th score as the last drain left it
+    (strict >, so -inf never passes) and queued; a queue holds ``cap``
+    entries, and a full one is drained (sorted in (score desc, id asc)
+    order and merged into the row's list of k) before the next candidate is
+    queued; the chunk's end drains the rest. The threshold is refreshed only
+    by drains, so it is stale in between, as the kernel's register copy is.
+    Returns ``(scores [R, k], ids [R, k] int32)``; empty slots are (-inf,
+    INT32_MAX)."""
     rows, n = scores.shape
     limit = n if limit is None else min(int(limit), n)
     out_s = torch.full((rows, k), NEG_INF)
     out_i = torch.full((rows, k), INT32_MAX, dtype=torch.int32)
     vals = scores.detach().cpu().float().tolist()
     for r in range(rows):
-        lst = []  # sorted (-score, id), at most k
+        lst, queue = [], []  # lst: sorted (-score, id), at most k
+
+        def drain():
+            lst.extend(queue)
+            lst.sort()
+            del lst[k:], queue[:]
+
+        kth = NEG_INF
         for c0 in range(0, n, tile):
-            for b0 in range(c0, min(c0 + tile, n), sub):
-                block = [(v, c) for c, v in enumerate(vals[r][b0 : min(b0 + sub, n)], b0)
-                         if c < limit and v > NEG_INF]
-                kth = lst[-1] if len(lst) == k else (float("inf"), INT32_MAX)
-                if not block or not max(v for v, _ in block) > -kth[0]:
-                    continue  # the gate: the block's maximum does not beat the k-th score
-                for v, c in sorted(block, key=lambda vc: (-vc[0], vc[1])):
-                    kth = lst[-1] if len(lst) == k else (float("inf"), INT32_MAX)
-                    if not (-v, c) < kth:
-                        break
-                    lst.append((-v, c))
-                    lst.sort()
-                    del lst[k:]
+            for c in range(c0, min(c0 + tile, n)):
+                v = vals[r][c] if c < limit else NEG_INF
+                if not v > kth:
+                    continue
+                if len(queue) == cap:
+                    drain()
+                    kth = -lst[-1][0] if len(lst) == k else NEG_INF
+                queue.append((-v, c))
+        drain()
         for j, (v, c) in enumerate(lst):
             out_s[r, j], out_i[r, j] = -v, c
     return out_s, out_i

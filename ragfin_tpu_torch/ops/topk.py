@@ -10,7 +10,7 @@ on ties.
   lowest-id tie rule).
 - :func:`cosine_topk_fused` / :func:`cosine_topk_fused_int8`: on a CUDA
   tensor, the hand-written kernels in ``csrc/`` (two passes: per-chunk
-  running top-k, then a merge); on a CPU tensor, their plain PyTorch
+  running top-k, then a merge by bound); on a CPU tensor, their plain PyTorch
   versions in this module, which hold the same contract: empty slots are
   ``INT32_MAX`` ids with ``-inf`` scores, the tile-major layout needs
   ``n_valid``. Each wrapper counts its kernel launches in ``.launches``.
@@ -20,6 +20,7 @@ The dense tiers are plain torch, as they are plain XLA in JAX.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -272,10 +273,13 @@ def fused_topk_int8_plain(queries, corpus_i8, scales, k, n_valid=None):
 # this mirrors): queries [TQ, Dp + pad] (f32, or int8 over an int8 corpus), a
 # ring of 16 KB corpus slices (rows padded to 136 columns, int8 to 144; three
 # slices at TQ = 64, else four), for int8 two k-packed [128, 36]-word
-# buffers, two buffers of sub-block maxima and their columns, ceiling sums,
-# and for the selection two [TQ, 132] score tiles and each row's k-th score
-# (the lists themselves live in the walker warps' registers).
+# buffers, ceiling sums, and for the selection two candidate-queue buffers of
+# _QCAP (score, column) pairs a row with their counts, each row's k-th score
+# and four control words (the lists themselves live in the drainer warps'
+# registers); for the ceiling stages two buffers of per-warp row maxima and
+# their columns.
 _SMEM_LIMIT = 232448  # dynamic shared memory one block may use on an H100
+_QCAP = 64  # csrc/fused_pass1.cuh kQCap
 # Per corpus itemsize: slice depth, query row padding, corpus row stride.
 _SLICE = {
     4: (32, 4, _KERNEL_TILE_N + 8),
@@ -290,12 +294,13 @@ def _pass1_smem(tq: int, d: int, itemsize: int, select: bool = True) -> int:
     wc = 8 if tq == 8 else 4
     stages = 3 if tq == 64 else 4
     q_item = 1 if itemsize == 1 else 4
-    size = q_item * tq * (dp + pad) + itemsize * stages * dk * cs + 2 * tq * wc * 8
+    size = q_item * tq * (dp + pad) + itemsize * stages * dk * cs + tq * 12
     if itemsize == 1:
         size += 2 * _KERNEL_TILE_N * (dk // 4 + 4) * 4
-    size += tq * 12
     if select:
-        size += 4 * tq * (2 * (_KERNEL_TILE_N + 4) + 1)
+        size += tq * (2 * _QCAP * 8 + 12) + 16
+    else:
+        size += 2 * tq * wc * 8
     return size
 
 
@@ -310,21 +315,26 @@ def _pass1_tile(nq: int, d: int, itemsize: int, select: bool = True, allowed=(8,
     raise ValueError(f"D={d}: a pass-1 block's shared memory exceeds {_SMEM_LIMIT} bytes")
 
 
-# Query rows per block of the int8 pass 1. Its 64-row block builds without
-# spills, but up to Q = 128 the int8 pass 1 is bound by its walk (the
-# product and the read are cheap), and 32-row blocks halve each walker
-# warp's rows for twice the chunk length; from Q = _INT8_WIDE_FROM on, the
-# corpus reads of twice the query tiles cost more than that saves, and the
-# blocks take 64 rows (chip_smoke.py --sweep times both at Q = 64, 128 and
-# 1024).
-_INT8_WIDE_FROM = 256
-
-
 def _tile(nq: int, d: int, itemsize: int, select: bool = True) -> int:
     """Query rows per block of pass 1 for a corpus of this itemsize: the
-    fused wrappers' rule, which the ceiling probe follows."""
-    narrow = itemsize == 1 and nq < _INT8_WIDE_FROM
-    return _pass1_tile(nq, d, itemsize, select, (8, 32) if narrow else (8, 32, 64))
+    fused wrappers' rule, which the ceiling probe follows. Every corpus type
+    takes 64 rows from Q = 33: 64-row blocks read the corpus once, and the
+    queued selection no longer bounds the int8 pass 1 there (it took 32 rows
+    below Q = 256 while the walk of one candidate at a time did;
+    chip_smoke.py --sweep times 32 and 64 at Q = 64, 128 and 1024)."""
+    return _pass1_tile(nq, d, itemsize, select)
+
+
+def _device_index(device) -> int:
+    index = torch.device(device).index
+    return torch.cuda.current_device() if index is None else index
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    """Streaming multiprocessors of card ``index``, read once: the property
+    call would otherwise be host work on every wrapper call."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _pass1_plan(q: int, n: int, tq: int, device: torch.device) -> tuple[int, int]:
@@ -334,7 +344,7 @@ def _pass1_plan(q: int, n: int, tq: int, device: torch.device) -> tuple[int, int
     at least two column tiles per chunk."""
     n_tiles = -(-n // _KERNEL_TILE_N)
     q_tiles = -(-q // tq)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    sms = _sm_count(_device_index(device))
     chunks = max(1, sms // q_tiles)
     per_chunk = max(2, -(-n_tiles // chunks))
     return per_chunk, -(-n_tiles // per_chunk)
@@ -389,7 +399,10 @@ def cosine_topk_fused(
     _check_cuda_inputs(queries, corpus_t, k, (torch.float32, torch.bfloat16))
     if not corpus_t.is_contiguous():
         raise ValueError("corpus must be contiguous")
-    q = _fused_queries(queries, corpus_t.dtype, precision).contiguous()
+    # The fast tier's rounding of the queries to bf16 happens as the kernel
+    # stages them (round_q), not in two more launches here.
+    q = queries.float().contiguous()
+    round_q = precision == "fast" and corpus_t.dtype == torch.bfloat16
     nq, d = q.shape
     if nq == 0 or n == 0:
         return _empty_result(nq, k, q.device)
@@ -404,7 +417,7 @@ def cosine_topk_fused(
     with torch.cuda.device(q.device):  # launch on the corpus's card
         err = fn(
             q.data_ptr(), nq, d, corpus_t.data_ptr(), int(corpus_t.dtype == torch.bfloat16),
-            ld, tile_stride, bn, n, limit, k, tq, per_chunk, chunks,
+            int(round_q), ld, tile_stride, bn, n, limit, k, tq, per_chunk, chunks,
             part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
             torch.cuda.current_stream(q.device).cuda_stream,
         )

@@ -1,4 +1,4 @@
-"""Run the primitives of the two-level in-tile selection on the card.
+"""Run the primitives of the in-tile selection on the card.
 
 The CUDA counterpart of scripts/mosaic_bisect.py. It builds
 ragfin_tpu_torch/csrc/merge_cases.cu for sm_90a, prints each case's

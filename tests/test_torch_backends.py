@@ -19,6 +19,7 @@ from ragfin_tpu_torch.eval.distractors import generate_distractors as t_distract
 from ragfin_tpu_torch.models.embedder import HashedEmbedder, MiniLMEmbedder, TrainedEmbedder
 from ragfin_tpu_torch.serving.engine import RagFinEngine as TEngine
 from ragfin_tpu.eval.distractors import generate_distractors as j_distractors
+from tests._jax_fasthash import jax_native_from_port_build  # noqa: F401
 
 
 @pytest.mark.parametrize(

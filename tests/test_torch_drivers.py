@@ -48,6 +48,7 @@ from ragfin_tpu_torch.eval.statements import write_extract_data
 from ragfin_tpu_torch.index.ivf_index import IVFVectorIndex as TIVF
 from ragfin_tpu_torch.index.vector_index import DeviceVectorIndex as TIndex
 from ragfin_tpu_torch.retrieval.queryfilter import FilteredSearch as TFiltered
+from tests._jax_fasthash import jax_native_from_port_build  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "scripts"))

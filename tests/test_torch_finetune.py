@@ -36,6 +36,7 @@ from ragfin_tpu_torch.models import training as tt
 from ragfin_tpu_torch.models.bag_encoder import BagEncoder as TBag
 from ragfin_tpu_torch.models.featurizer import HashedFeaturizer as TFeat
 from ragfin_tpu_torch.utils import checkpoint as ck
+from tests._jax_fasthash import jax_native_from_port_build  # noqa: F401
 
 LOSS_RTOL = 1e-4
 TABLE_TOL = 5e-4

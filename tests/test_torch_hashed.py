@@ -31,6 +31,7 @@ from ragfin_tpu_torch.models import fasthash as t_fasthash
 from ragfin_tpu_torch.models.embedder import HashedEmbedder as THashed
 from ragfin_tpu_torch.models.embedder import make_embedder
 from ragfin_tpu_torch.models.featurizer import HashedFeaturizer as TFeat
+from tests._jax_fasthash import jax_native_from_port_build  # noqa: F401
 
 ENCODE_TOL = 2e-6
 

@@ -42,6 +42,7 @@ from ragfin_tpu_torch.index.vector_index import DeviceVectorIndex as TIndex
 from ragfin_tpu_torch.models.bag_encoder import BagEncoder as TBag
 from ragfin_tpu_torch.models.embedder import HashedEmbedder
 from ragfin_tpu_torch.serving.engine import RagFinEngine as TEngine
+from tests._jax_fasthash import jax_native_from_port_build  # noqa: F401
 
 TOL = 1e-5
 TIE = 1e-6

@@ -1,7 +1,7 @@
 """The port stands alone: ``ragfin_tpu_torch``, ``chip_smoke.py``,
 ``bench_torch.py``, ``scripts/kernel_probe_torch.py``,
-``scripts/mosaic_bisect_torch.py``, ``scripts/train_encoder_torch.py``, the
-drivers ``scripts/serving_concurrent_torch.py``,
+``scripts/mosaic_bisect_torch.py``, ``scripts/train_encoder_torch.py``,
+``scripts/smoke_phases_torch.py``, the drivers ``scripts/serving_concurrent_torch.py``,
 ``scripts/trained_eval_torch.py``, ``scripts/distractor_eval_torch.py`` and
 ``examples/demo_torch.py`` import neither JAX (nor flax, optax or orbax,
 which import it) nor anything of the JAX package, and the port's entry
@@ -33,6 +33,7 @@ def _port_files():
         os.path.join(ROOT, "scripts", "kernel_probe_torch.py"),
         os.path.join(ROOT, "scripts", "mosaic_bisect_torch.py"),
         os.path.join(ROOT, "scripts", "train_encoder_torch.py"),
+        os.path.join(ROOT, "scripts", "smoke_phases_torch.py"),
         *(os.path.join(ROOT, p) for p in DRIVERS),
     ]
     for dirpath, _, names in os.walk(PKG):

@@ -362,3 +362,52 @@ class TestOnCard:
         else:
             np.testing.assert_allclose(s.cpu().numpy(), ps.cpu().numpy(), rtol=0, atol=TOL)
             assert _ids_equal_outside_tie_bands(ps.cpu().numpy(), pi.cpu().numpy(), i.cpu().numpy())
+
+
+def _banded(spacing, n_random=700, bands=3, width=150, d=D, seed=21):
+    """Random unit rows, and ``bands`` bands of ``width`` rows whose scores
+    against their band's query fall by ``spacing`` from 0.9 down (rows
+    cos(t) a + sin(t) b, a the query, b a unit vector at right angles to
+    it), shuffled together. The random rows score below 0.7."""
+    rng = np.random.default_rng(seed)
+    rows, queries = [_unit(rng.normal(size=(n_random, d)))], []
+    for _ in range(bands):
+        a = _unit(rng.normal(size=(1, d)))[0]
+        b = rng.normal(size=d)
+        b = (b - (b @ a) * a) / np.linalg.norm(b - (b @ a) * a)
+        c = 0.9 - spacing * np.arange(width)
+        rows.append((c[:, None] * a + np.sqrt(1 - c**2)[:, None] * b).astype(np.float32))
+        queries.append(a)
+    x = np.concatenate(rows)[rng.permutation(n_random + bands * width)]
+    return np.ascontiguousarray(x, np.float32), np.asarray(queries, np.float32)
+
+
+@pytest.mark.parametrize("spacing", [5e-9, 2e-5])
+def test_int8_ivf_full_probe_on_near_duplicate_bands(spacing):
+    """The int8 IVF at full probe, as the index serves it (a 64-wide
+    shortlist on int8 scores, then the exact host re-score), in both
+    packages on one clustering: the same ids. Against the numpy host-exact
+    oracle, outside 1e-5 tie bands: a band whose scores lie within 1e-6
+    (5e-9 apart) is one tie band, and both packages equal the oracle. A band
+    of 150 rows 2e-5 apart, wider than the shortlist, is ordered by the int8
+    scores' quantisation error (about 1e-3), not by its gaps: both packages
+    miss the same oracle ids, and the f32 index at full probe does not."""
+    x, qs = _banded(spacing)
+    recs = _records(len(x))
+    j = JIVF.build(x, recs, cell=CELL, quantize=True, normalize=False)
+    t = TI.IVFVectorIndex(_carry(j.ivf), recs, exact_rows=x)
+    js, jid = j.search_embeddings(qs, top_k=10, nprobe=j.ivf.n_cells)
+    ts, tid = t.search_embeddings(qs, top_k=10, nprobe=t.ivf.n_cells)
+    assert np.array_equal(np.asarray(jid), tid)
+    np.testing.assert_array_equal(np.asarray(js), ts)
+    exact = qs @ x.T
+    order = np.argsort(-exact, axis=1, kind="stable")[:, :10]
+    oracle = np.take_along_axis(exact, order, 1)
+    own = TI.IVFVectorIndex.build(x, recs, cell=CELL, quantize=True, normalize=False,
+                                  device="cpu")
+    _, oid = own.search_embeddings(qs, top_k=10, nprobe=own.ivf.n_cells)
+    f32 = TI.IVFVectorIndex.build(x, recs, cell=CELL, normalize=False, device="cpu")
+    _, fid = f32.search_embeddings(qs, top_k=10, nprobe=f32.ivf.n_cells)
+    assert _ids_equal_outside_tie_bands(oracle, order, fid)
+    for got in (tid, oid):
+        assert _ids_equal_outside_tie_bands(oracle, order, got) == (spacing < 1e-6)

@@ -2,9 +2,11 @@
 Pallas cases of scripts/mosaic_bisect.py, run in interpret mode with the
 script's own specs (the script is imported by path and not changed), bit for
 bit, on seeded tiles: uniform values, the script's all-ones tile, heavy ties,
-and columns of -inf. On the card, chip_smoke.py and
-scripts/mosaic_bisect_torch.py hold the CUDA kernels against the same plain
-versions."""
+and columns of -inf. The four cases of the queue selection (queue push,
+bitonic sort, bitonic merge, pass 2's bound filter) have no Pallas
+counterpart: their plain versions are held against numpy on the same tiles.
+On the card, chip_smoke.py and scripts/mosaic_bisect_torch.py hold the CUDA
+kernels against the same plain versions."""
 
 import importlib.util
 import os
@@ -67,11 +69,12 @@ TILES = [("uniform", 0), ("uniform", 1), ("ones", 0), ("ties", 2), ("ties", 3), 
 
 
 def test_case_names_match_the_script():
-    assert tuple(MB.CASES) == M.CASES
+    assert tuple(MB.CASES) == M.PALLAS_CASES
+    assert M.CASES == M.PALLAS_CASES + M.NEW_CASES and not set(M.NEW_CASES) & set(MB.CASES)
     assert (MB.TQ, MB.TN, MB.SUB) == (M.TQ, M.TN, M.SUB)
 
 
-@pytest.mark.parametrize("name", M.CASES)
+@pytest.mark.parametrize("name", M.PALLAS_CASES)
 @pytest.mark.parametrize("kind,seed", TILES)
 def test_plain_equals_pallas_case_bitwise(name, kind, seed):
     x = _tile(kind, seed)
@@ -79,6 +82,44 @@ def test_plain_equals_pallas_case_bitwise(name, kind, seed):
     got = M.merge_case(name, torch.from_numpy(x))  # CPU tensor: the plain version
     assert got.shape == (64, 128) and got.dtype == torch.float32
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _best_numpy(x, k, first_id=0):
+    """Each row's best k in (score desc, id asc) order, as lexsort gives it."""
+    ids = np.broadcast_to(np.arange(x.shape[1]), x.shape)
+    order = np.lexsort((ids, -x.astype(np.float64)), axis=1)[:, :k]
+    return np.take_along_axis(x, order, 1), order + first_id
+
+
+def _queue_case_numpy(name, x):
+    out = np.zeros((64, 128), np.float32)
+    if name == "queue_push":
+        return ((x[:, :128] > 0.5).astype(np.float32) + 2 * (x[:, 128:] > 0.5)).astype(np.float32)
+    if name in ("bitonic_sort", "bitonic_merge"):
+        s, i = _best_numpy(x, 64)
+        out[:, :64], out[:, 64:] = i, s
+        return out
+    parts = [_best_numpy(x[:, c * 64 : (c + 1) * 64], 16, c * 64) for c in range(4)]
+    bound = np.max([s[:, 15] for s, _ in parts], axis=0)
+    for r in range(64):
+        surv = sorted((-float(s), int(i)) for ps, pi in parts for s, i in zip(ps[r], pi[r])
+                      if s > -np.inf and s >= bound[r])
+        top = surv[:16] + [(np.inf, 0x7FFFFFFF)] * (16 - min(16, len(surv)))
+        out[r, :16] = [i for _, i in top]
+        out[r, 16:32] = [-s for s, _ in top]
+        out[r, 32], out[r, 33] = bound[r], len(surv)
+    return out
+
+
+@pytest.mark.parametrize("name", M.NEW_CASES)
+@pytest.mark.parametrize("kind,seed", TILES)
+def test_queue_cases_plain_equals_numpy(name, kind, seed):
+    """The selection's cases: what each keeps (ties by the lower id, -inf
+    entries after every real one, the bound filter's survivors) against
+    numpy's lexsort on the same tile, bitwise."""
+    x = _tile(kind, seed)
+    got = M.merge_case(name, torch.from_numpy(x))  # CPU tensor: the plain version
+    np.testing.assert_array_equal(got.numpy(), _queue_case_numpy(name, x))
 
 
 @pytest.mark.parametrize("first", [-np.inf, np.inf, -3.7, 0.2, 1.9, 5.0])

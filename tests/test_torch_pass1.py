@@ -1,11 +1,12 @@
 """Pass 1 of the f32/bf16 fused and pruned top-k kernels (csrc/fused_pass1.cuh),
 modelled on the CPU where the card is absent:
 
-- the two-level selection (ops/merge_cases.py twolevel_topk_plain, the plain
-  model of the kernel's gate and walk) against the fused kernels' selection
+- the selection (ops/merge_cases.py queue_topk_plain, the plain model of the
+  kernel's gate, queues and drains) against the fused kernels' selection
   contract (ops/topk.py _fused_select), under hypothesis: ties inside and
-  across sub-blocks and tiles, -inf columns, a ragged ``limit``, k from 1 to
-  128, and chunks merged as pass 2 merges them;
+  across tiles and queue batches, -inf columns, a ragged ``limit``, k from 1
+  to 128, queues of 16 to 64 entries, and chunks merged as pass 2 merges
+  them (tests/test_torch_select_model.py models the protocol itself);
 - the tensor-core products as the kernel forms them, emulated in numpy:
   3xTF32 (cvt.rna rounding: to nearest, ties away from zero) and the
   three-way bf16 split of f32 queries, each against an f64 product (max
@@ -26,12 +27,12 @@ from hypothesis import strategies as st
 
 from ragfin_tpu_torch.ops import ivf as tivf
 from ragfin_tpu_torch.ops import topk as ttopk
-from ragfin_tpu_torch.ops.merge_cases import twolevel_topk_plain
+from ragfin_tpu_torch.ops.merge_cases import queue_topk_plain
 
 INT32_MAX = 0x7FFFFFFF
 
 
-# --- the two-level selection ---------------------------------------------------
+# --- the selection ---------------------------------------------------
 
 
 def _masked(scores, limit):
@@ -45,19 +46,19 @@ def _masked(scores, limit):
     rows=st.integers(1, 3),
     n=st.integers(1, 700),
     k=st.integers(1, 128),
-    sub=st.sampled_from([16, 32]),
+    cap=st.sampled_from([16, 32, 64]),
     cut=st.floats(0.0, 1.0),
     seed=st.integers(0, 2**31 - 1),
     levels=st.integers(1, 6),
 )
-def test_twolevel_selection_equals_fused_select(rows, n, k, sub, cut, seed, levels):
+def test_twolevel_selection_equals_fused_select(rows, n, k, cap, cut, seed, levels):
     rng = np.random.default_rng(seed)
-    # Few distinct values: ties everywhere, inside sub-blocks, across them and
-    # across tiles; some columns -inf.
+    # Few distinct values: ties everywhere, inside a queue's batch, across
+    # batches and across tiles; some columns -inf.
     pool = np.concatenate([rng.standard_normal(levels), [-np.inf]]).astype(np.float32)
     scores = torch.from_numpy(rng.choice(pool, (rows, n)).astype(np.float32))
     limit = int(cut * n)
-    got_s, got_i = twolevel_topk_plain(scores, k, sub=sub, limit=limit)
+    got_s, got_i = queue_topk_plain(scores, k, cap=cap, limit=limit)
     want_s, want_i = ttopk._fused_select(_masked(scores, limit), k)
     assert torch.equal(got_s, want_s)
     assert torch.equal(got_i, want_i)
@@ -78,7 +79,7 @@ def test_chunks_merged_as_pass_two_equal_one_walk(n, k, chunks, seed):
     for a, b in zip(bounds[:-1], bounds[1:]):
         if b <= a:
             continue
-        s, i = twolevel_topk_plain(scores[:, a:b], k)
+        s, i = queue_topk_plain(scores[:, a:b], k)
         parts_s.append(s)
         parts_i.append(torch.where(i == INT32_MAX, i, i + int(a)))
     cat_s, cat_i = torch.cat(parts_s, 1), torch.cat(parts_i, 1)
@@ -92,7 +93,7 @@ def test_chunks_merged_as_pass_two_equal_one_walk(n, k, chunks, seed):
 
 def test_all_minus_inf_row_and_k_above_valid_columns():
     scores = torch.tensor([[float("-inf")] * 200, [1.0] * 3 + [float("-inf")] * 197])
-    s, i = twolevel_topk_plain(scores, 8, limit=150)
+    s, i = queue_topk_plain(scores, 8, limit=150)
     assert torch.isneginf(s[0]).all() and (i[0] == INT32_MAX).all()
     assert s[1, :3].tolist() == [1.0] * 3 and i[1, :3].tolist() == [0, 1, 2]
     assert torch.isneginf(s[1, 3:]).all() and (i[1, 3:] == INT32_MAX).all()

@@ -12,9 +12,10 @@ absent:
   the score tile by the kernel's own index formula must equal
   ``q8 @ c8`` in int32 exactly, for random and extreme bytes and D in
   {100, 384, 388};
-- the two-level selection (ops/merge_cases.py twolevel_topk_plain) on
-  int8-dequantised scores with heavy ties, under hypothesis, against the
-  fused kernels' selection contract (ops/topk.py _fused_select);
+- the selection (ops/merge_cases.py queue_topk_plain: the gate, queues that
+  overflow, drains) on int8-dequantised scores with heavy ties, under
+  hypothesis, against the fused kernels' selection contract (ops/topk.py
+  _fused_select);
 - the wrapper's shared-memory and tile rule for itemsize 1.
 
 The card-only tests (marked ``cuda``) run every int8 instantiation: 8, 32
@@ -31,7 +32,7 @@ from hypothesis import strategies as st
 
 from ragfin_tpu_torch.ops import ivf as tivf
 from ragfin_tpu_torch.ops import topk as ttopk
-from ragfin_tpu_torch.ops.merge_cases import twolevel_topk_plain
+from ragfin_tpu_torch.ops.merge_cases import queue_topk_plain
 
 KDK, KTN, KCS, KTBS, KSTEP = 128, 128, 144, 36, 32  # csrc/fused_pass1.cuh Slice<int8_t>, kTBS
 PRODUCERS = 256
@@ -189,7 +190,7 @@ def test_byte_transpose_selectors():
         assert np.array_equal(np.array([kp[col * KTBS]], np.uint32).view(np.uint8), m[:, col])
 
 
-# --- the two-level selection on int8 scores --------------------------------------
+# --- the selection on int8 scores --------------------------------------
 
 
 @settings(max_examples=40, deadline=None)
@@ -197,17 +198,17 @@ def test_byte_transpose_selectors():
     rows=st.integers(1, 3),
     n=st.integers(1, 600),
     k=st.sampled_from([1, 70, 128]),
-    sub=st.sampled_from([16, 32]),
+    cap=st.sampled_from([16, 32, 64]),
     values=st.integers(1, 4),
     dup=st.integers(0, 40),
     cut=st.floats(0.0, 1.0),
     seed=st.integers(0, 2**31 - 1),
 )
-def test_twolevel_selection_on_tied_int8_scores(rows, n, k, sub, values, dup, cut, seed):
+def test_twolevel_selection_on_tied_int8_scores(rows, n, k, cap, values, dup, cut, seed):
     """Few distinct bytes, few distinct scales and duplicated columns: the
     dequantised scores (int -> f32 times the column scale, the fused
-    kernel's order before selection) tie everywhere; the walk must keep the
-    lowest id first as _fused_select does."""
+    kernel's order before selection) tie everywhere; the queues' drains must
+    keep the lowest id first as _fused_select does."""
     rng = np.random.default_rng(seed)
     d = 8
     pool = rng.integers(-127, 128, values).astype(np.int8)
@@ -220,7 +221,7 @@ def test_twolevel_selection_on_tied_int8_scores(rows, n, k, sub, values, dup, cu
     scales = rng.choice(np.float32([0.01, 0.02, 0.005]), (1, n))
     scores = ttopk._int_scores(torch.from_numpy(q8), torch.from_numpy(c8)) * torch.from_numpy(scales)
     limit = int(cut * n)
-    got_s, got_i = twolevel_topk_plain(scores, k, sub=sub, limit=limit)
+    got_s, got_i = queue_topk_plain(scores, k, cap=cap, limit=limit)
     masked = scores.clone()
     masked[:, limit:] = float("-inf")
     want_s, want_i = ttopk._fused_select(masked, k)
@@ -232,11 +233,13 @@ def test_twolevel_selection_on_tied_int8_scores(rows, n, k, sub, values, dup, cu
 
 
 def test_int8_shared_memory_mirrors_pass1_smem():
-    # D = 384, 64 rows, selection: queries 64 * (384 + 16), ring 3 * 128 * 144,
-    # two k-packed buffers 2 * 128 * 36 words, maxima and columns 2 * 64 * 4 * 8,
-    # ceiling sums 64 * 12, score tiles and k-th scores 4 * 64 * (2 * 132 + 1).
-    assert ttopk._pass1_smem(64, 384, 1) == 25600 + 55296 + 36864 + 4096 + 768 + 67840
-    assert ttopk._pass1_smem(64, 384, 1, select=False) == 25600 + 55296 + 36864 + 4096 + 768
+    # D = 384, 64 rows: queries 64 * (384 + 16), ring 3 * 128 * 144, two
+    # k-packed buffers 2 * 128 * 36 words, ceiling sums 64 * 12; the
+    # selection: two queue buffers of 64 (score, column) pairs a row, their
+    # counts, the k-th scores, 16 bytes of control words, 64 * (2 * 64 * 8 +
+    # 12) + 16; the ceiling stages: maxima and columns 2 * 64 * 4 * 8.
+    assert ttopk._pass1_smem(64, 384, 1) == 25600 + 55296 + 36864 + 768 + 66320
+    assert ttopk._pass1_smem(64, 384, 1, select=False) == 25600 + 55296 + 36864 + 768 + 4096
     # D = 100 pads to one 128-deep slice; D = 388 to four.
     assert ttopk._pass1_smem(8, 100, 1) - ttopk._pass1_smem(8, 1, 1) == 0
     assert ttopk._pass1_smem(8, 388, 1) - ttopk._pass1_smem(8, 384, 1) == 8 * 128
@@ -251,12 +254,12 @@ def test_int8_tile_fits(nq, d, want):
     assert tq == want and ttopk._pass1_smem(tq, d, 1) <= ttopk._SMEM_LIMIT
 
 
-@pytest.mark.parametrize("nq,want", [(1, 8), (8, 8), (9, 32), (64, 32), (255, 32), (256, 64),
+@pytest.mark.parametrize("nq,want", [(1, 8), (8, 8), (9, 32), (32, 32), (33, 64), (64, 64),
                                      (1024, 64)])
 def test_int8_wrapper_rule(nq, want):
-    """Up to Q = 255 the int8 pass 1 is bound by its walk and the wrappers
-    (and the ceiling probe, which runs their grid) take 8 or 32 rows a
-    block; from 256 on, 64. f32/bf16 take 64 from Q = 33."""
+    """The int8 wrappers (and the ceiling probe, which runs their grid) take
+    the f32/bf16 rule: 8, 32 or 64 rows a block, 64 from Q = 33, since the
+    queued selection no longer bounds the int8 pass 1 at 64 rows."""
     assert ttopk._tile(nq, 384, 1) == want
     assert ttopk._tile(nq, 384, 2) == (64 if nq > 32 else min(want, 32))
 
@@ -282,10 +285,11 @@ class TestOnCard:
 
     @pytest.mark.parametrize("nq", [3, 20, 64, 1024])
     @pytest.mark.parametrize("k", [1, 70, 128])
-    @pytest.mark.parametrize("layout", ["flat", "tiled", "odd_n", "d100", "d388", "rows64"])
+    @pytest.mark.parametrize("layout", ["flat", "tiled", "odd_n", "d100", "d388", "rows32"])
     def test_fused_int8_bitwise(self, nq, k, layout, monkeypatch):
-        if layout == "rows64":  # the 64-row block the wrapper's rule does not pick
-            monkeypatch.setattr(ttopk, "_INT8_WIDE_FROM", 0)
+        if layout == "rows32":  # the 32-row block the wrapper's rule does not pick from Q = 33
+            monkeypatch.setattr(ttopk, "_tile", lambda nq, d, item, select=True:
+                                ttopk._pass1_tile(nq, d, item, select, (8, 32)))
         rng = np.random.default_rng(nq + k)
         d = {"d100": 100, "d388": 388}.get(layout, 384)
         n = 5001 if layout == "odd_n" else 5120
@@ -325,12 +329,13 @@ class TestOnCard:
 
     @pytest.mark.parametrize("nq", [3, 20, 64])
     @pytest.mark.parametrize("d", [100, 384])
-    @pytest.mark.parametrize("rows64", [False, True])
-    def test_ceiling_int8_stages_bitwise(self, nq, d, rows64, monkeypatch):
+    @pytest.mark.parametrize("rows32", [False, True])
+    def test_ceiling_int8_stages_bitwise(self, nq, d, rows32, monkeypatch):
         from ragfin_tpu_torch.ops import ceiling as C
 
-        if rows64:
-            monkeypatch.setattr(ttopk, "_INT8_WIDE_FROM", 0)
+        if rows32:  # the 32-row block the rule does not pick from Q = 33
+            monkeypatch.setattr(C, "_tile", lambda nq, d, item, select=True:
+                                ttopk._pass1_tile(nq, d, item, select, (8, 32)))
 
         rng = np.random.default_rng(nq + d)
         n = 128 * 37 + 52

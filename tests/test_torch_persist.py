@@ -27,6 +27,7 @@ from ragfin_tpu_torch.eval.distractors import generate_distractors as t_generate
 from ragfin_tpu_torch.index.vector_index import DeviceVectorIndex as TIndex
 from ragfin_tpu_torch.models.embedder import TrainedEmbedder as TEmbedder
 from ragfin_tpu_torch.utils import indexio as t_indexio
+from tests._jax_fasthash import jax_native_from_port_build  # noqa: F401
 
 N = 200
 SEED = 11
