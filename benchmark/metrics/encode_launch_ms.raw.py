@@ -1,0 +1,6 @@
+"""The reading of `encode_launch_ms` in the raw cell, whose per-layer metrics name
+`peak_gib` (PERF.md, section 2)."""
+
+from benchmark.lib.spec import reader
+
+read = reader("encode_launch_ms")

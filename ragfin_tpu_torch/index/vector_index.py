@@ -48,6 +48,7 @@ from ..ops.topk import (
 )
 from ..ops.quantize import quantize_corpus_t
 from ..utils.device import DeviceLike, resolve_device
+from ..utils.profiling import METRICS
 
 def _q_bucket(n: int) -> int:
     """Bucket a query count to {1, 8, 64, k*64} device batch shapes (one
@@ -283,9 +284,12 @@ class DeviceVectorIndex:
         self.featurizer = getattr(embedder, "featurizer", None)
 
     # --- search ----------------------------------------------------------
+    @METRICS.spanned("index.upload")
     def _queries_tensor(self, q) -> torch.Tensor:
+        METRICS.count("index.query_upload")
         return torch.as_tensor(np.asarray(q, np.float32)).to(self.device)
 
+    @METRICS.spanned("index.search", nested=False)
     def search_embeddings(self, query_embeddings, top_k: int = 3, method: str = "auto"):
         """Raw device search: [Q, D] unit queries -> (scores, row ids)."""
         k = min(top_k, max(self.n, 1))
@@ -296,12 +300,18 @@ class DeviceVectorIndex:
         )
         if self.quantized:
             if self._exact_rows is None or self.n == 0:
-                return cosine_topk_fused_int8(q, self.matrix_t, self.scales, k, n_valid=self.n)
+                with METRICS.span("index.topk"):
+                    return cosine_topk_fused_int8(q, self.matrix_t, self.scales, k, n_valid=self.n)
             # int8 scan for the shortlist, exact host f32 re-score for the order.
             kr = min(_repair_width(k), max(self.n, 1))
-            _, ids = cosine_topk_fused_int8(q, self.matrix_t, self.scales, kr, n_valid=self.n)
-            return _exact_rerank_host(_host(q), _host(ids), self._exact_rows, k)
-        return cosine_topk(q, self.matrix_t, k, n_valid=self.n, method=method)
+            with METRICS.span("index.topk"):
+                _, ids = cosine_topk_fused_int8(q, self.matrix_t, self.scales, kr, n_valid=self.n)
+            with METRICS.span("index.readback"):
+                q, ids = _host(q), _host(ids)
+            with METRICS.span("index.repair"):
+                return _exact_rerank_host(q, ids, self._exact_rows, k)
+        with METRICS.span("index.topk"):
+            return cosine_topk(q, self.matrix_t, k, n_valid=self.n, method=method)
 
     def _meta_arrays(self):
         """Vectorized metadata columns (cached): (int32 codes, vocab) each."""
@@ -324,6 +334,7 @@ class DeviceVectorIndex:
             self._meta = cached
         return cached[1], cached[2], cached[3]
 
+    @METRICS.spanned("index.mask")
     def _filter_mask(
         self,
         period: Optional[str] = None,
@@ -352,6 +363,7 @@ class DeviceVectorIndex:
             hit = cache.get(cache_key)
             if hit is not None:
                 return hit
+            METRICS.count("index.mask_build")
         n_pad = int(self.matrix_t.shape[1])
         (pcodes, pvocab), (ccodes, cvocab), (ocodes, ovocab) = self._meta_arrays()
         mask = np.ones((len(self.records),), bool)
@@ -431,6 +443,7 @@ class DeviceVectorIndex:
         cache[key] = entry
         return entry
 
+    @METRICS.spanned("index.hits")
     def _exact_bucket_search(
         self, queries, rows, key, top_k, consistency_weight, consistency_strict
     ):
@@ -504,6 +517,7 @@ class DeviceVectorIndex:
             out.append(h)
         return out
 
+    @METRICS.spanned("index.search", nested=False)
     def search_texts(
         self,
         queries: Sequence[str],
@@ -563,17 +577,19 @@ class DeviceVectorIndex:
             if self.quantized:
                 repair = self._repairable(consistency_weight)
                 dev_k = min(_repair_width(fetch_k) if repair else fetch_k, max(self.n, 1))
-                scores, rows = cosine_topk_dense_int8(
-                    qt, self.matrix_t, self.scales, dev_k,
-                    n_valid=self.n, row_mask=row_mask, score_mult=score_mult,
-                )
+                with METRICS.span("index.topk"):
+                    scores, rows = cosine_topk_dense_int8(
+                        qt, self.matrix_t, self.scales, dev_k,
+                        n_valid=self.n, row_mask=row_mask, score_mult=score_mult,
+                    )
                 if repair:
                     scores, rows = self._exact_repair(q, scores, rows, min(fetch_k, dev_k))
             else:
-                scores, rows = cosine_topk_dense(
-                    qt, self.matrix_t, min(fetch_k, max(self.n, 1)),
-                    n_valid=self.n, row_mask=row_mask, score_mult=score_mult,
-                )
+                with METRICS.span("index.topk"):
+                    scores, rows = cosine_topk_dense(
+                        qt, self.matrix_t, min(fetch_k, max(self.n, 1)),
+                        n_valid=self.n, row_mask=row_mask, score_mult=score_mult,
+                    )
         else:
             scores, rows = self.search_embeddings(q, top_k=fetch_k, method=method)
         return self._postprocess_device_hits(
@@ -584,15 +600,17 @@ class DeviceVectorIndex:
         """Exact host re-score of a FILTERED int8 device shortlist; only
         entries the device scored finite are re-scored (a masked-out row
         must never re-enter on its raw cosine)."""
-        scores = _host(scores)
-        rows = _host(rows)
-        q = np.asarray(q, np.float32)[: rows.shape[0]]
-        safe = np.clip(rows, 0, max(self.n - 1, 0))
-        cand = self._exact_rows[safe.reshape(-1)].reshape(rows.shape + (self.dim,))
-        exact = np.einsum("qd,qkd->qk", q, cand)
-        valid = np.isfinite(scores) & (rows < self.n)
-        exact = np.where(valid, exact, -np.inf)
-        return _oracle_truncate(exact, rows, keep)
+        with METRICS.span("index.readback"):
+            scores = _host(scores)
+            rows = _host(rows)
+        with METRICS.span("index.repair"):
+            q = np.asarray(q, np.float32)[: rows.shape[0]]
+            safe = np.clip(rows, 0, max(self.n - 1, 0))
+            cand = self._exact_rows[safe.reshape(-1)].reshape(rows.shape + (self.dim,))
+            exact = np.einsum("qd,qkd->qk", q, cand)
+            valid = np.isfinite(scores) & (rows < self.n)
+            exact = np.where(valid, exact, -np.inf)
+            return _oracle_truncate(exact, rows, keep)
 
     def _repairable(self, consistency_weight: float) -> bool:
         """Whether the filtered int8 paths widen the fetch and repair on the
@@ -611,8 +629,18 @@ class DeviceVectorIndex:
     ):
         """Device shortlist -> SearchHit lists: drop sentinel and -inf slots,
         then the optional exact sparse re-rank and consistency re-rank."""
-        scores = _host(scores)
-        rows = _host(rows)
+        with METRICS.span("index.readback"):
+            scores = _host(scores)
+            rows = _host(rows)
+        return self._host_hits(
+            queries, scores, rows, top_k, rerank, consistency_weight, consistency_strict
+        )
+
+    @METRICS.spanned("index.hits")
+    def _host_hits(
+        self, queries, scores, rows, top_k, rerank, consistency_weight, consistency_strict
+    ):
+        """Host shortlists -> SearchHit lists (see _postprocess_device_hits)."""
         out = []
         for qi in range(len(queries)):
             hits = []
@@ -710,12 +738,14 @@ class DeviceVectorIndex:
         hit = cache.get(full_key)
         if hit is not None:
             return hit
+        METRICS.count("index.mask_build")
         dev = build()
         if len(cache) > 32:
             cache.clear()
         cache[full_key] = dev
         return dev
 
+    @METRICS.spanned("index.mask")
     def _device_tier_masks(self, group_key, device_tiers) -> torch.Tensor:
         """Device-resident [G, N] tier-mask stack, cached per tier-group key."""
         return self._device_cached_mask(
@@ -723,12 +753,14 @@ class DeviceVectorIndex:
             lambda: torch.from_numpy(np.stack([m for _, m in device_tiers])).to(self.device),
         )
 
+    @METRICS.spanned("index.mask")
     def _device_row_mask(self, key, mask: np.ndarray) -> torch.Tensor:
         """Single [N] device row mask, cached per filter key."""
         return self._device_cached_mask(
             ("single", key), lambda: torch.from_numpy(mask).to(self.device)
         )
 
+    @METRICS.spanned("index.search", nested=False)
     def search_texts_tiers(
         self,
         queries: Sequence[str],
@@ -794,10 +826,11 @@ class DeviceVectorIndex:
             if self.quantized:
                 repair = self._repairable(consistency_weight)
                 dev_k = min(_repair_width(fetch_k) if repair else fetch_k, max(self.n, 1))
-                s_all, r_all = cosine_topk_dense_multi_int8(
-                    qt, self.matrix_t, self.scales, dev_k, masks,
-                    n_valid=self.n, score_mult=score_mult,
-                )
+                with METRICS.span("index.topk"):
+                    s_all, r_all = cosine_topk_dense_multi_int8(
+                        qt, self.matrix_t, self.scales, dev_k, masks,
+                        n_valid=self.n, score_mult=score_mult,
+                    )
                 if repair:
                     keep = min(fetch_k, dev_k)
                     pairs = [
@@ -807,11 +840,13 @@ class DeviceVectorIndex:
                     s_all = np.stack([p[0] for p in pairs])
                     r_all = np.stack([p[1] for p in pairs])
             else:
-                s_all, r_all = cosine_topk_dense_multi(
-                    qt, self.matrix_t, fetch_k, masks, n_valid=self.n, score_mult=score_mult,
-                )
-            s_all = _host(s_all)
-            r_all = _host(r_all)
+                with METRICS.span("index.topk"):
+                    s_all, r_all = cosine_topk_dense_multi(
+                        qt, self.matrix_t, fetch_k, masks, n_valid=self.n, score_mult=score_mult,
+                    )
+            with METRICS.span("index.readback"):
+                s_all = _host(s_all)
+                r_all = _host(r_all)
             for gi, (ti, _) in enumerate(device_tiers):
                 results[ti] = self._postprocess_device_hits(
                     queries, s_all[gi], r_all[gi], top_k, rerank,

@@ -23,6 +23,7 @@ import torch
 
 from ..config.constants import EMBED_DIM
 from ..utils.device import DeviceLike, resolve_device
+from ..utils.profiling import METRICS
 
 
 class Embedder(Protocol):
@@ -69,10 +70,15 @@ class HashedEmbedder:
         self.featurizer.fit(texts)
         return self
 
+    @METRICS.spanned("encode")
     @torch.inference_mode()
     def encode_texts(self, texts: Sequence[str]) -> np.ndarray:
-        ids, wts = self.featurizer.encode_batch(list(texts))
-        return self.encoder.encode(ids, wts).cpu().numpy()
+        with METRICS.span("encode.tokenize"):
+            ids, wts = self.featurizer.encode_batch(list(texts))
+        with METRICS.span("encode.forward"):
+            emb = self.encoder.encode(ids, wts)
+        with METRICS.span("encode.readback"):
+            return emb.cpu().numpy()
 
     def state_dict(self) -> dict:
         return {
@@ -140,14 +146,20 @@ class MiniLMEmbedder:
     def fit(self, texts: Sequence[str]) -> "MiniLMEmbedder":
         return self  # nothing corpus-dependent
 
+    @METRICS.spanned("encode")
     @torch.inference_mode()
     def encode_texts(self, texts: Sequence[str]) -> np.ndarray:
         out = []
         for start in range(0, len(texts), self.batch_size):
-            ids, mask = self.tokenizer.encode_batch(list(texts[start : start + self.batch_size]))
-            ids_t = torch.from_numpy(np.asarray(ids, np.int64)).to(self.device)
-            mask_t = torch.from_numpy(np.asarray(mask)).to(self.device)
-            out.append(self.model(ids_t, mask_t).float().cpu().numpy())
+            batch = list(texts[start : start + self.batch_size])
+            with METRICS.span("encode.tokenize"):
+                ids, mask = self.tokenizer.encode_batch(batch)
+            with METRICS.span("encode.forward"):
+                ids_t = torch.from_numpy(np.asarray(ids, np.int64)).to(self.device)
+                mask_t = torch.from_numpy(np.asarray(mask)).to(self.device)
+                emb = self.model(ids_t, mask_t)
+            with METRICS.span("encode.readback"):
+                out.append(emb.float().cpu().numpy())
         return np.concatenate(out, axis=0) if out else np.zeros((0, self.dim), np.float32)
 
     def state_dict(self) -> dict:
@@ -188,28 +200,32 @@ class TrainedEmbedder:
     def fit(self, texts: Sequence[str]) -> "TrainedEmbedder":
         return self  # nothing corpus-dependent at index-build time
 
+    @METRICS.spanned("encode")
     @torch.inference_mode()
     def encode_texts(self, texts: Sequence[str]) -> np.ndarray:
         out = []
         for start in range(0, len(texts), self.batch_size):
             batch = list(texts[start : start + self.batch_size])
-            ids, mask = self.tokenizer.encode_batch(batch, pad_multiple=self.pad_multiple)
             rows = len(batch)
-            if rows < self.batch_size:
-                # Same row and sequence buckets as the JAX package, so both
-                # encode the same padded shapes.
-                target = row_bucket(rows, len(texts), self.batch_size)
-                s_pad = max(64, -(-ids.shape[1] // 64) * 64) - ids.shape[1]
-                if s_pad:
-                    ids = np.pad(ids, ((0, 0), (0, s_pad)))
-                    mask = np.pad(mask, ((0, 0), (0, s_pad)))
-                if target > rows:
-                    ids = np.pad(ids, ((0, target - rows), (0, 0)))
-                    mask = np.pad(mask, ((0, target - rows), (0, 0)))
-            ids_t = torch.from_numpy(np.asarray(ids, np.int64)).to(self.device)
-            mask_t = torch.from_numpy(np.asarray(mask)).to(self.device)
-            emb = self.model(ids_t, mask_t)[:rows]
-            out.append(emb.float().cpu().numpy())
+            with METRICS.span("encode.tokenize"):
+                ids, mask = self.tokenizer.encode_batch(batch, pad_multiple=self.pad_multiple)
+                if rows < self.batch_size:
+                    # Same row and sequence buckets as the JAX package, so both
+                    # encode the same padded shapes.
+                    target = row_bucket(rows, len(texts), self.batch_size)
+                    s_pad = max(64, -(-ids.shape[1] // 64) * 64) - ids.shape[1]
+                    if s_pad:
+                        ids = np.pad(ids, ((0, 0), (0, s_pad)))
+                        mask = np.pad(mask, ((0, 0), (0, s_pad)))
+                    if target > rows:
+                        ids = np.pad(ids, ((0, target - rows), (0, 0)))
+                        mask = np.pad(mask, ((0, target - rows), (0, 0)))
+            with METRICS.span("encode.forward"):
+                ids_t = torch.from_numpy(np.asarray(ids, np.int64)).to(self.device)
+                mask_t = torch.from_numpy(np.asarray(mask)).to(self.device)
+                emb = self.model(ids_t, mask_t)[:rows]
+            with METRICS.span("encode.readback"):
+                out.append(emb.float().cpu().numpy())
         return np.concatenate(out, axis=0) if out else np.zeros((0, self.dim), np.float32)
 
     def state_dict(self) -> dict:

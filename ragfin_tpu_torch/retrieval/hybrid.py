@@ -21,7 +21,6 @@ from ..index.vector_index import DeviceVectorIndex
 from ..llm.providers import LLMProvider
 from ..ops.fusion import fuse_results
 from .graph_rag import lexical_question_entities, llm_question_entities, strategy_search
-from ..utils.profiling import METRICS
 
 GRAPH_HIT_SCORE = 1.0  # reference assigns graph hits score 1.0 (:316)
 
@@ -51,7 +50,6 @@ class HybridRAG:
     async def hybrid_query(
         self, question: str, vector_k: int = 10, k_out: int = 20
     ) -> dict[str, Any]:
-        METRICS.incr("hybrid.queries")
         # 1. Vector search over the full corpus (reference used limit=1000 on
         # a 16-chunk collection, i.e. everything; vector_k bounds it here).
         vec_hits = self.vector_index.search_texts([question], top_k=vector_k)[0]

@@ -18,6 +18,8 @@ import re
 from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
+from ..utils.profiling import METRICS
+
 _ORDINALS = {
     "first": 1, "1st": 1,
     "second": 2, "2nd": 2,
@@ -343,6 +345,7 @@ class FilteredSearch:
         groups.append([{}])
         return groups
 
+    @METRICS.spanned("retrieval.search")
     def search_texts(self, queries, top_k: int = 3, method: str = "auto", **kwargs):
         """Tiered scoped search.
 

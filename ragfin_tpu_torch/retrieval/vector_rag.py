@@ -16,7 +16,6 @@ from __future__ import annotations
 from typing import Any, Optional, Sequence
 
 from ..index.vector_index import DeviceVectorIndex, SearchHit
-from ..utils.profiling import METRICS
 
 # Any object with ``async generate_content(prompt) -> str`` (the JAX
 # package's llm.providers protocol); providers are ported with Slice 4.
@@ -151,14 +150,11 @@ class VectorRAG:
                 h.conflict = True
                 if key not in present:
                     present.append(key)
-        if present:
-            METRICS.incr("vector.conflicts_flagged")
         return present
 
     # --- search (MCP tool `search_vectors` contract) ----------------------
     def search(self, query: str, top_k: int = 3) -> list[dict[str, Any]]:
-        with METRICS.timed("vector.search"):
-            wide = self._search_one(query, self._detection_fetch(top_k))
+        wide = self._search_one(query, self._detection_fetch(top_k))
         hits = wide[:top_k]
         self._annotate_conflicts(wide, returned=hits)
         return [h.to_dict() for h in hits]
@@ -170,15 +166,14 @@ class VectorRAG:
     async def search_and_answer(self, question: str, top_k: int = 3) -> dict[str, Any]:
         import asyncio
 
-        with METRICS.timed("vector.search_and_answer"):
-            # The batcher wait (and a cold direct search) BLOCKS — on the
-            # shared MCP tool loop that would serialize concurrent
-            # answer_question calls (defeating the micro-batcher, which
-            # exists to coalesce them) and stall every other async tool
-            # behind a single degraded-tunnel query. Run it off-loop.
-            wide = await asyncio.to_thread(
-                self._search_one, question, self._detection_fetch(top_k)
-            )
+        # The batcher wait (and a cold direct search) BLOCKS — on the
+        # shared MCP tool loop that would serialize concurrent
+        # answer_question calls (defeating the micro-batcher, which
+        # exists to coalesce them) and stall every other async tool
+        # behind a single degraded-tunnel query. Run it off-loop.
+        wide = await asyncio.to_thread(
+            self._search_one, question, self._detection_fetch(top_k)
+        )
         hits = wide[:top_k]
         contested = self._annotate_conflicts(wide, returned=hits)
         contexts = [h.record.text for h in hits]

@@ -24,12 +24,13 @@ from ..utils.profiling import METRICS
 
 
 class _WorkItem:
-    __slots__ = ("query", "top_k", "future")
+    __slots__ = ("query", "top_k", "future", "enqueued")
 
     def __init__(self, query: str, top_k: int):
         self.query = query
         self.top_k = top_k
         self.future: Future = Future()
+        self.enqueued = time.perf_counter()
 
 
 class QueryBatcher:
@@ -150,8 +151,11 @@ class QueryBatcher:
                 batch = self._drain()
                 if not batch:
                     continue
-                METRICS.incr("batcher.batches")
-                METRICS.incr("batcher.queries", len(batch))
+                now = time.perf_counter()
+                for item in batch:
+                    METRICS.observe_latency("batcher.wait", now - item.enqueued)
+                METRICS.count("batcher.batches")
+                METRICS.count("batcher.queries", len(batch))
                 METRICS.observe_value("batcher.batch_size", len(batch))
                 k = max(item.top_k for item in batch)
                 try:
@@ -169,7 +173,7 @@ class QueryBatcher:
                 for item, hits in zip(batch, results):
                     self._resolve(item, hits[: item.top_k])
             except Exception:  # the collector must survive anything
-                METRICS.incr("batcher.loop_errors")
+                METRICS.count("batcher.loop_errors")
         # Drain leftovers on shutdown so no caller hangs to its timeout.
         while True:
             try:

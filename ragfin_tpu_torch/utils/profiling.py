@@ -3,63 +3,52 @@
 The reference has no tracing (only an ad-hoc ``extraction_time`` field); the
 rebuild's north-star metric is QPS/latency, so this is first-class here:
 
-- :class:`StageTimer` — nested wall-clock stage timing with context managers.
-- :class:`MetricRegistry` — process-wide counters + latency histograms with
-  p50/p90/p99 summaries; every engine/service surface can record into it.
-
-- :func:`trace` — a ``torch.profiler`` capture of host and device activity,
-  written as a Chrome trace into a directory.
+- :class:`MetricRegistry` (``METRICS``) — process-wide counters, latency and
+  value histograms with p50/p90/p99 summaries, and spans: named, nested
+  intervals of one thread on the ``time.perf_counter_ns`` clock, each with
+  the counts made inside it. The search path opens them (``retrieval.search``,
+  ``index.*``, ``encode.*``, ``batcher.dispatch``).
+- :func:`trace` — a ``torch.profiler`` capture of host and device activity
+  with the program's spans in it, written as a Chrome trace into a directory.
 - :func:`device_memory_stats` — live device memory per CUDA card.
 - :func:`device_ms` — median CUDA-event time of a call, and :func:`card` —
   the card's name and power limit: the one timer and the one label of every
   device time the bench, the probe script and the chip smoke report.
 
-Counterpart of ``ragfin_tpu/utils/profiling.py``: the timers and the registry
-are copies, the two device helpers are over ``torch.profiler`` and
-``torch.cuda.memory_stats`` where the JAX package uses ``jax.profiler``;
-``device_ms`` stands where ``bench.py`` times a ``lax.scan`` on the device.
+Spans record only while a ``torch.profiler`` capture runs (:func:`trace`, or
+the benchmark's traced window): a span that opens with no other span open on
+its thread checks for one, and the spans nested in it follow its choice, so a
+capture that starts while a call is in flight records none of that call. In a
+capture, each span is also a host range ``ragfin.<name>``, on the profiler's
+clock. Off, a span is a thread-local read and a flag test.
+
+Counterpart of ``ragfin_tpu/utils/profiling.py``: the registry's counters and
+histograms are its copy, the spans are the port's own; the two device helpers
+are over ``torch.profiler`` and ``torch.cuda.memory_stats`` where the JAX
+package uses ``jax.profiler``; ``device_ms`` stands where ``bench.py`` times a
+``lax.scan`` on the device.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
+import itertools
+import os
 import statistics
 import threading
 import time
 from collections import defaultdict
-from typing import Iterator, Optional
+from typing import Iterator
 
+import torch
+import torch.autograd.profiler as _autograd_profiler
 
-class StageTimer:
-    """Nested stage timing: ``with timer.stage("encode"): ...``."""
-
-    def __init__(self):
-        self.records: list[tuple[str, float]] = []
-        self._stack: list[str] = []
-
-    @contextlib.contextmanager
-    def stage(self, name: str) -> Iterator[None]:
-        self._stack.append(name)
-        path = "/".join(self._stack)
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.records.append((path, time.perf_counter() - t0))
-            self._stack.pop()
-
-    def summary(self) -> dict[str, dict[str, float]]:
-        grouped: dict[str, list[float]] = defaultdict(list)
-        for path, dt in self.records:
-            grouped[path].append(dt)
-        return {
-            path: {
-                "calls": len(times),
-                "total_s": sum(times),
-                "mean_ms": statistics.fmean(times) * 1e3,
-            }
-            for path, times in sorted(grouped.items())
-        }
+# A host-only profiler range. ``torch.profiler.record_function`` would also
+# put a ``gpu_user_annotation`` interval over the kernels each span launched
+# on the device timeline, which a reader of the capture's device events
+# would count as busy time.
+_profiler_range = torch._C._profiler._RecordFunctionFast
 
 
 def _percentile(sorted_vals: list[float], q: float) -> float:
@@ -69,30 +58,157 @@ def _percentile(sorted_vals: list[float], q: float) -> float:
     return sorted_vals[idx]
 
 
+class Span:
+    """One span: ``name``, ``start_ns`` / ``end_ns`` (``perf_counter_ns``),
+    the ``thread`` it ran on, its ``id``, its ``parent``'s id (None for a
+    root) and its ``root``'s id (its own for a root), and ``counts``, what
+    :meth:`MetricRegistry.count` added while it was the innermost open span
+    of its thread."""
+
+    __slots__ = ("name", "start_ns", "end_ns", "thread", "id", "parent", "root", "counts",
+                 "_registry", "_stack", "_range")
+
+    def __init__(self, registry, name, stack, parent):
+        self.name = name
+        self.id = next(registry._ids)
+        if parent is None:
+            self.parent, self.root, self.thread = None, self.id, threading.get_ident()
+        else:
+            self.parent, self.root, self.thread = parent.id, parent.root, parent.thread
+        self.counts: dict[str, float] = {}
+        self.start_ns = self.end_ns = 0
+        self._registry = registry
+        self._stack = stack
+        self._range = _profiler_range("ragfin." + name)
+
+    @property
+    def duration_ns(self) -> int:
+        return self.end_ns - self.start_ns
+
+    def __enter__(self) -> "Span":
+        self._range.__enter__()
+        self._stack.append(self)
+        self.start_ns = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.end_ns = time.perf_counter_ns()
+        self._stack.pop()
+        self._range.__exit__(None, None, None)
+        self._registry._keep(self)
+        self._registry = self._stack = self._range = None
+        return False
+
+
+class _Off:
+    """The span that records nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> None:
+        return None
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_OFF = _Off()
+
+
+class _Stack(list):
+    """A thread's open spans, innermost last, and ``untraced``: a reentrant
+    lock the thread holds, as a flag, while a call that started outside a
+    capture runs. It is the span such a call opens, so its spans record
+    nothing even once a capture has started, and none of them is taken for
+    a call of its own."""
+
+    __slots__ = ("untraced",)
+
+    def __init__(self):
+        super().__init__()
+        self.untraced = threading.RLock()
+
+
+class _Open(threading.local):
+    """The open spans of each thread."""
+
+    def __init__(self):
+        self.stack = _Stack()
+
+
 class MetricRegistry:
-    """Thread-safe counters and latency histograms."""
+    """Thread-safe counters, latency and value histograms, and spans."""
+
+    span_limit = 1 << 20  # spans kept; past it ``trace.dropped`` counts the rest
 
     def __init__(self, window: int = 4096):
         self._lock = threading.Lock()
         self._counters: dict[str, float] = defaultdict(float)
         self._latencies: dict[str, list[float]] = defaultdict(list)
         self._values: dict[str, list[float]] = defaultdict(list)
-        self._stamps: dict[str, list[float]] = defaultdict(list)
         self._window = window
+        self._open = _Open()
+        self._ids = itertools.count(1)
+        self._spans: list[Span] = []
 
-    def incr(self, name: str, amount: float = 1.0) -> None:
+    # --- spans --------------------------------------------------------------
+    def span(self, name: str, nested: bool = True):
+        """Context manager for one span of ``name`` on this thread. Its
+        parent is the innermost open span of the thread. ``nested=False``
+        opens nothing inside an open span of the same name."""
+        stack = self._open.stack
+        if stack:
+            if not nested and any(s.name == name for s in stack):
+                return _OFF
+            return Span(self, name, stack, stack[-1])
+        if not _autograd_profiler._is_profiler_enabled:
+            return stack.untraced
+        if stack.untraced._is_owned():
+            return _OFF
+        return Span(self, name, stack, None)
+
+    def spanned(self, name: str, nested: bool = True):
+        """Decorator: the whole call is one span of ``name``."""
+
+        def wrap(fn):
+            @functools.wraps(fn)
+            def inner(*args, **kwargs):
+                with self.span(name, nested):
+                    return fn(*args, **kwargs)
+
+            return inner
+
+        return wrap
+
+    def _keep(self, span: Span) -> None:
+        if len(self._spans) < self.span_limit:
+            self._spans.append(span)
+        else:
+            with self._lock:
+                self._counters["trace.dropped"] += 1
+
+    def spans(self) -> list[Span]:
+        """The closed spans kept since the last :meth:`reset`, in the order
+        they closed (children before their parent)."""
+        return list(self._spans)
+
+    # --- counters and histograms ----------------------------------------------
+    def count(self, name: str, n: float = 1) -> None:
+        """Add ``n`` to the counter ``name``; while a span is open on this
+        thread, to the innermost one's ``counts`` too."""
         with self._lock:
-            self._counters[name] += amount
+            self._counters[name] += n
+        stack = self._open.stack
+        if stack:
+            counts = stack[-1].counts
+            counts[name] = counts.get(name, 0) + n
 
     def observe_latency(self, name: str, seconds: float) -> None:
         with self._lock:
             bucket = self._latencies[name]
             bucket.append(seconds)
-            stamps = self._stamps[name]
-            stamps.append(time.time())
             if len(bucket) > self._window:
                 del bucket[: len(bucket) - self._window]
-                del stamps[: len(stamps) - self._window]
 
     def observe_value(self, name: str, value: float) -> None:
         """Unitless value histogram (batch sizes, queue depths) — kept apart
@@ -105,12 +221,15 @@ class MetricRegistry:
 
     @contextlib.contextmanager
     def timed(self, name: str) -> Iterator[None]:
+        """A span of ``name`` whose duration also feeds the latency
+        histogram ``name`` and the counter ``name.count``."""
         t0 = time.perf_counter()
         try:
-            yield
+            with self.span(name):
+                yield
         finally:
             self.observe_latency(name, time.perf_counter() - t0)
-            self.incr(name + ".count")
+            self.count(name + ".count")
 
     def summary(self) -> dict:
         with self._lock:
@@ -136,28 +255,12 @@ class MetricRegistry:
                     }
             return out
 
-    def qps(self, name: str, window_s: float = 60.0) -> Optional[float]:
-        """Completions per second over the LAST ``window_s`` wall seconds.
-
-        Counts completion timestamps — inverse-mean-latency would understate
-        true throughput by the concurrency factor."""
-        with self._lock:
-            stamps = self._stamps.get(name)
-            if not stamps:
-                return None
-            cutoff = time.time() - window_s
-            recent = sum(1 for t in stamps if t >= cutoff)
-            if recent == 0:
-                return 0.0
-            span = min(window_s, max(time.time() - stamps[0], 1e-9))
-            return recent / span
-
     def reset(self) -> None:
         with self._lock:
             self._counters.clear()
             self._latencies.clear()
             self._values.clear()
-            self._stamps.clear()
+            self._spans.clear()
 
 
 METRICS = MetricRegistry()
@@ -165,19 +268,20 @@ METRICS = MetricRegistry()
 
 @contextlib.contextmanager
 def trace(log_dir: str) -> Iterator[None]:
-    """Capture a ``torch.profiler`` trace (host, and the card when there is
-    one) of the enclosed block into ``log_dir/trace.json`` (Chrome trace
-    format: chrome://tracing, Perfetto, TensorBoard's profiler plugin)."""
-    import os
-
-    import torch
+    """Capture a ``torch.profiler`` trace of the enclosed block, every
+    thread's host activity and the card's when there is one, into
+    ``log_dir/trace.json`` (Chrome trace format: chrome://tracing, Perfetto,
+    TensorBoard's profiler plugin). The program's spans of the calls that
+    start inside it appear as ``ragfin.<name>``."""
+    from torch._C._profiler import _ExperimentalConfig
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    with profile(activities=activities,
+                 experimental_config=_ExperimentalConfig(profile_all_threads=True)) as prof:
         yield
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
