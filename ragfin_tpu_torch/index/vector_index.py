@@ -7,7 +7,9 @@ records stay on the host. Unfiltered searches go through
 :func:`ragfin_tpu_torch.ops.topk.cosine_topk` (the fused CUDA kernel at
 65,536 columns and up) or, for int8, the fused int8 kernel plus an exact f32
 re-score of its shortlist on the host. Filtered searches and tier groups
-run the dense tiers with device-cached row masks.
+run the dense tiers: on the columns of their scope alone, gathered, where
+the scope holds few rows, else over every column with device-cached row
+masks.
 
 ``save``/``load`` use the JAX package's on-disk format (``index.json`` plus
 ``matrix.rgfi`` or ``matrix.npz``), so an index saved by either package loads
@@ -102,6 +104,11 @@ def _exact_rerank_host(q, ids, rows_f32, k: int):
     exact = np.einsum("qd,qkd->qk", q, cand)
     exact = np.where(ids < n_rows, exact, -np.inf)
     return _oracle_truncate(exact, ids, k)
+
+
+def _filter_key(period, periods, chunk_type, company) -> tuple:
+    """A stable filter's cache key, as the masks and buckets are cached."""
+    return (tuple(sorted(periods)) if periods else period, chunk_type, company)
 
 
 def _host(x) -> np.ndarray:
@@ -410,6 +417,11 @@ class DeviceVectorIndex:
             cached = vals
         return cached
 
+    # Largest share of the padded width a masked search's scope may hold
+    # and still be scored on its own columns, gathered, instead of masking
+    # the product over every column (PERF.md §6: the card's crossover).
+    scope_gather_max_share = 1 / 16
+
     # Largest filtered candidate set served by the exact-sparse host path;
     # bigger buckets go through the device projection as usual.
     exact_bucket_max = 65536
@@ -560,36 +572,14 @@ class DeviceVectorIndex:
                     queries, plan[0], plan[1], top_k, consistency_weight, consistency_strict,
                 )
         q = _pad_queries(self._encode_queries(queries))
-        score_mult = (
-            self._integrity_mult(consistency_weight, consistency_strict)
-            if consistency_weight > 0
-            else None
-        )
-        if mask is not None or score_mult is not None:
-            row_mask = None
-            if mask is not None:
-                if predicate is None:
-                    mkey = (tuple(sorted(periods)) if periods else period, chunk_type, company)
-                    row_mask = self._device_row_mask(mkey, mask)
-                else:
-                    row_mask = torch.from_numpy(mask).to(self.device)
-            qt = self._queries_tensor(q)
-            if self.quantized:
-                repair = self._repairable(consistency_weight)
-                dev_k = min(_repair_width(fetch_k) if repair else fetch_k, max(self.n, 1))
-                with METRICS.span("index.topk"):
-                    scores, rows = cosine_topk_dense_int8(
-                        qt, self.matrix_t, self.scales, dev_k,
-                        n_valid=self.n, row_mask=row_mask, score_mult=score_mult,
-                    )
-                if repair:
-                    scores, rows = self._exact_repair(q, scores, rows, min(fetch_k, dev_k))
-            else:
-                with METRICS.span("index.topk"):
-                    scores, rows = cosine_topk_dense(
-                        qt, self.matrix_t, min(fetch_k, max(self.n, 1)),
-                        n_valid=self.n, row_mask=row_mask, score_mult=score_mult,
-                    )
+        if mask is not None or consistency_weight > 0:
+            key = None if mask is None or predicate is not None else (
+                (_filter_key(period, periods, chunk_type, company),)
+            )
+            s_all, r_all = self._masked_topk(
+                q, [mask], key, fetch_k, consistency_weight, consistency_strict
+            )
+            scores, rows = s_all[0], r_all[0]
         else:
             scores, rows = self.search_embeddings(q, top_k=fetch_k, method=method)
         return self._postprocess_device_hits(
@@ -707,8 +697,7 @@ class DeviceVectorIndex:
         bucket_rows = np.nonzero(mask[: len(self.records)])[0]
         if not (0 < bucket_rows.size <= self.exact_bucket_max):
             return None
-        key = (tuple(sorted(periods)) if periods else period, chunk_type, company)
-        return bucket_rows, key
+        return bucket_rows, _filter_key(period, periods, chunk_type, company)
 
     def _integrity_mult(self, consistency_weight: float, consistency_strict: bool) -> torch.Tensor:
         """The [N] multiplier column on the index's device, cached per
@@ -729,8 +718,9 @@ class DeviceVectorIndex:
         return mult
 
     def _device_cached_mask(self, key, build) -> torch.Tensor:
-        """Get-or-upload a device mask under ``key`` (bounded cache): filter
-        vocabularies are small, so each mask crosses to the device once."""
+        """Get-or-upload a device mask (or a scope's gathered pair) under
+        ``key`` (bounded cache): filter vocabularies are small, so each
+        crosses to the device once."""
         cache = getattr(self, "_device_mask_cache", None)
         if cache is None:
             cache = self._device_mask_cache = {}
@@ -746,11 +736,10 @@ class DeviceVectorIndex:
         return dev
 
     @METRICS.spanned("index.mask")
-    def _device_tier_masks(self, group_key, device_tiers) -> torch.Tensor:
+    def _device_tier_masks(self, key, masks) -> torch.Tensor:
         """Device-resident [G, N] tier-mask stack, cached per tier-group key."""
         return self._device_cached_mask(
-            ("group", group_key),
-            lambda: torch.from_numpy(np.stack([m for _, m in device_tiers])).to(self.device),
+            ("group", key), lambda: torch.from_numpy(np.stack(masks)).to(self.device)
         )
 
     @METRICS.spanned("index.mask")
@@ -759,6 +748,109 @@ class DeviceVectorIndex:
         return self._device_cached_mask(
             ("single", key), lambda: torch.from_numpy(mask).to(self.device)
         )
+
+    @METRICS.spanned("index.mask")
+    def _scope_columns(self, key, masks, k: int):
+        """The scope of a masked search on the device, ``(rows, tier_masks)``,
+        when the union of the tiers' host ``masks`` holds R rows with
+        ``k <= R <= N * scope_gather_max_share`` (N the padded width), else
+        None. ``rows`` are the union's [R] ids, ascending, below ``n``;
+        ``tier_masks`` the [G, R] tier masks over them (None for one tier).
+        R is counted once per tier key; the device pair is cached beside the
+        dense masks, under the same key."""
+        width = int(self.matrix_t.shape[1])
+        sizes = getattr(self, "_scope_sizes", None)
+        if sizes is None:
+            sizes = self._scope_sizes = {}
+        size = sizes.get((key, width))
+        if size is None:
+            if len(sizes) > 64:
+                sizes.clear()
+            size = sizes[(key, width)] = int(
+                np.count_nonzero(np.logical_or.reduce(masks)[: self.n])
+            )
+        if not k <= size <= width * self.scope_gather_max_share:
+            return None
+
+        def build():
+            rows = np.nonzero(np.logical_or.reduce(masks)[: self.n])[0]
+            tier_masks = None
+            if len(masks) > 1:
+                tier_masks = torch.from_numpy(np.stack([m[rows] for m in masks])).to(self.device)
+            return torch.from_numpy(rows).to(self.device), tier_masks
+
+        return self._device_cached_mask(("gather", key), build)
+
+    def _masked_topk(
+        self, q, masks, key, fetch_k: int, consistency_weight: float, consistency_strict: bool
+    ):
+        """Top ``fetch_k`` of each filter tier for the padded queries ``q``:
+        ([G, Q, k] scores, [G, Q, k] ids), device tensors, or host arrays
+        after the filtered int8 repair. ``masks`` holds each tier's host row
+        mask (a lone None: every row, for ``score_mult`` alone); ``key`` the
+        tiers' filter keys, under which the device masks are cached (None:
+        a predicate's mask, uploaded each time). A scope that
+        :meth:`_scope_columns` admits is scored on its own columns; any other
+        on every column, masked."""
+        qt = self._queries_tensor(q)
+        score_mult = (
+            self._integrity_mult(consistency_weight, consistency_strict)
+            if consistency_weight > 0
+            else None
+        )
+        fetch_k = min(fetch_k, max(self.n, 1))
+        repair = self._repairable(consistency_weight)
+        dev_k = min(_repair_width(fetch_k) if repair else fetch_k, max(self.n, 1))
+        scope = None if key is None else self._scope_columns(key, masks, dev_k)
+        if scope is not None:
+            rows, dev_masks = scope
+        elif len(masks) > 1:
+            dev_masks = self._device_tier_masks(key, masks)
+        elif masks[0] is None:
+            dev_masks = None
+        elif key is None:
+            dev_masks = torch.from_numpy(masks[0]).to(self.device)
+        else:
+            dev_masks = self._device_row_mask(key, masks[0])
+        corpus, scales, n_valid = self.matrix_t, self.scales, self.n
+        with METRICS.span("index.topk"):
+            if scope is not None:
+                # The scope's columns alone, ascending: the dense tiers'
+                # arithmetic on each, and their stable selection's order.
+                METRICS.count("index.scope_gather")
+                corpus = corpus.index_select(1, rows)
+                scales = None if scales is None else scales.index_select(1, rows)
+                score_mult = None if score_mult is None else score_mult.index_select(0, rows)
+                n_valid = None
+            if dev_masks is not None and dev_masks.dim() == 2:
+                if self.quantized:
+                    s_all, r_all = cosine_topk_dense_multi_int8(
+                        qt, corpus, scales, dev_k, dev_masks,
+                        n_valid=n_valid, score_mult=score_mult,
+                    )
+                else:
+                    s_all, r_all = cosine_topk_dense_multi(
+                        qt, corpus, dev_k, dev_masks, n_valid=n_valid, score_mult=score_mult,
+                    )
+            else:
+                if self.quantized:
+                    s_all, r_all = cosine_topk_dense_int8(
+                        qt, corpus, scales, dev_k,
+                        n_valid=n_valid, row_mask=dev_masks, score_mult=score_mult,
+                    )
+                else:
+                    s_all, r_all = cosine_topk_dense(
+                        qt, corpus, dev_k,
+                        n_valid=n_valid, row_mask=dev_masks, score_mult=score_mult,
+                    )
+                s_all, r_all = s_all[None], r_all[None]
+            if scope is not None:
+                r_all = rows[r_all.long()].to(torch.int32)
+        if not repair:
+            return s_all, r_all
+        keep = min(fetch_k, dev_k)
+        pairs = [self._exact_repair(q, s_all[gi], r_all[gi], keep) for gi in range(len(masks))]
+        return np.stack([p[0] for p in pairs]), np.stack([p[1] for p in pairs])
 
     @METRICS.spanned("index.search", nested=False)
     def search_texts_tiers(
@@ -772,8 +864,9 @@ class DeviceVectorIndex:
         consistency_strict: bool = True,
         query_expansion: bool = True,
     ) -> list[list[list[SearchHit]]]:
-        """All filter tiers of a query group from one [Q, N] score matrix;
-        equivalent to ``[search_texts(queries, **f) for f in tier_filters]``.
+        """All filter tiers of a query group from one score matrix, over the
+        columns of the tiers' scope or all N; equivalent to
+        ``[search_texts(queries, **f) for f in tier_filters]``.
         Integrity-mode tiers with a small bucket take the exact host path,
         as in ``search_texts``."""
         if any(f.get("predicate") is not None for f in tier_filters):
@@ -789,7 +882,8 @@ class DeviceVectorIndex:
         queries = self._expand_for_search(queries, query_expansion)
         width = self.matrix_t.shape[1]
         results: dict[int, list] = {}
-        device_tiers: list[tuple[int, np.ndarray]] = []
+        device_tiers: list[int] = []
+        masks: list[np.ndarray] = []
         tier_keys: list = []
         for ti, flt in enumerate(tier_filters):
             mask = self._filter_mask(
@@ -805,49 +899,21 @@ class DeviceVectorIndex:
                     queries, plan[0], plan[1], top_k, consistency_weight, consistency_strict,
                 )
                 continue
-            if mask is None:
-                mask = np.ones(width, bool)
-            device_tiers.append((ti, mask))
-            periods_f = flt.get("periods")
-            tier_keys.append((
-                tuple(sorted(periods_f)) if periods_f else flt.get("period"),
-                flt.get("chunk_type"), flt.get("company"),
+            device_tiers.append(ti)
+            masks.append(np.ones(width, bool) if mask is None else mask)
+            tier_keys.append(_filter_key(
+                flt.get("period"), flt.get("periods"), flt.get("chunk_type"), flt.get("company"),
             ))
         if device_tiers:
             q = _pad_queries(self._encode_queries(queries))
-            qt = self._queries_tensor(q)
-            score_mult = (
-                self._integrity_mult(consistency_weight, consistency_strict)
-                if consistency_weight > 0
-                else None
+            s_all, r_all = self._masked_topk(
+                q, masks, tuple(tier_keys), max(top_k, rerank),
+                consistency_weight, consistency_strict,
             )
-            fetch_k = min(max(top_k, rerank), max(self.n, 1))
-            masks = self._device_tier_masks(tuple(tier_keys), device_tiers)
-            if self.quantized:
-                repair = self._repairable(consistency_weight)
-                dev_k = min(_repair_width(fetch_k) if repair else fetch_k, max(self.n, 1))
-                with METRICS.span("index.topk"):
-                    s_all, r_all = cosine_topk_dense_multi_int8(
-                        qt, self.matrix_t, self.scales, dev_k, masks,
-                        n_valid=self.n, score_mult=score_mult,
-                    )
-                if repair:
-                    keep = min(fetch_k, dev_k)
-                    pairs = [
-                        self._exact_repair(q, s_all[gi], r_all[gi], keep)
-                        for gi in range(len(device_tiers))
-                    ]
-                    s_all = np.stack([p[0] for p in pairs])
-                    r_all = np.stack([p[1] for p in pairs])
-            else:
-                with METRICS.span("index.topk"):
-                    s_all, r_all = cosine_topk_dense_multi(
-                        qt, self.matrix_t, fetch_k, masks, n_valid=self.n, score_mult=score_mult,
-                    )
             with METRICS.span("index.readback"):
                 s_all = _host(s_all)
                 r_all = _host(r_all)
-            for gi, (ti, _) in enumerate(device_tiers):
+            for gi, ti in enumerate(device_tiers):
                 results[ti] = self._postprocess_device_hits(
                     queries, s_all[gi], r_all[gi], top_k, rerank,
                     consistency_weight, consistency_strict,
