@@ -6,7 +6,8 @@ question's scope out again from the seed and the configuration:
 
 - ``qvec_cos_gap``: the encoder stage. Largest ``1 - cos`` between the query
   vector the program's embedder returned for a question inside the timed
-  call and the reference's float32 forward of the same text.
+  call and the reference's float32 forward of the same text (the forward of
+  the configuration's architecture, ``reference/models/<model_type>.py``).
 - ``score_err``: largest gap between a returned hit's score and the float64
   cosine of the program's own query vector with that hit's row.
 - ``order_gap``: largest gap, rank by rank, between the float64 scores of
@@ -39,11 +40,11 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..reference import encoder as ref_encoder
 from ..reference import filters as ref_filters
 from ..reference import search as ref_search
 from ..reference.tokenizer import Tokenizer
 from . import corpus as corpus_lib
+from . import spec
 from . import weights as weights_lib
 
 REPAIR_MIN = 16  # the int8 tiers fetch max(k + 6, 16) before the exact repair
@@ -104,6 +105,7 @@ class Reference:
         del x
         self.codes = layout.scope_codes(device)
         self.tokenizer = tokenizer_for(config, root)
+        self.arch = spec.arch(config)
         self.weights = encoder_weights(config, root, seed, device)
         self.dtype = config["deployment"]["settings"]["index_dtype"]
         self.k = mix["top_k"]
@@ -112,7 +114,7 @@ class Reference:
     # --- encoder -----------------------------------------------------------
     def encode(self, texts: list[str], lower: str | None = None) -> torch.Tensor:
         ids = [self.tokenizer.encode(t) for t in texts]
-        return ref_encoder.encode(self.weights, self.config, ids, self.device, lower=lower)
+        return self.arch.encode(self.weights, self.config, ids, self.device, lower=lower)
 
     # --- scopes ------------------------------------------------------------
     def plan(self, question: str) -> list[list[dict]]:

@@ -1,5 +1,6 @@
-"""The yardstick's arithmetic: the card's peaks, a top-k call's least time, and
-the FLOPs of a step.
+"""The yardstick's arithmetic: the card's peaks and a top-k call's least time.
+(An encoder's FLOPs are its architecture's: ``matmul_flops`` in
+``reference/models/<model_type>.py``.)
 
 Peaks are NVIDIA's data sheet for one H100 SXM (dense, no sparsity) at its
 full 700 W limit. A top-k call is counted by the work it asks for, whatever
@@ -34,15 +35,3 @@ def topk_ops(q: int, n: int, d: int) -> int:
 def topk_least_s(q: int, n: int, d: int, k: int, dtype: str) -> float:
     return max(topk_bytes(q, n, d, k, dtype) / HBM_BYTES_PER_S,
                topk_ops(q, n, d) / PEAK_OPS_PER_S[dtype])
-
-
-def encoder_flops(tokens: list[int], layers: int, hidden: int, ffn: int) -> int:
-    """Matrix-product FLOPs of a BERT encoder over sequences of ``tokens``
-    real tokens each: the four attention projections and the two FFN
-    products per token, and the score and context products over the
-    sequence, per layer."""
-    per_token = 2 * (4 * hidden * hidden + 2 * hidden * ffn)
-    total = 0
-    for s in tokens:
-        total += layers * (s * per_token + 2 * 2 * s * s * hidden)
-    return total

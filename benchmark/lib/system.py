@@ -1,12 +1,17 @@
 """The system under test, built from a configuration, and the probes around it.
 
-This is the one module of the benchmark that imports the program
-(``ragfin_tpu_torch``). It builds the deployment a configuration names, with
-the corpus and weights the benchmark made, and wraps three of its methods on
-the instances it built: the embedder's ``encode_texts`` and the index's
-``search_texts`` / ``search_texts_tiers``. The wrappers time each call on the
-host clock, count index dispatches, mark the spans for the profiler in a
-traced run, and keep the query vectors of the calls the check compares.
+It builds the deployment a configuration names, with the corpus and weights
+the benchmark made (seeded weights under the program's parameter names, which
+``lib/states/<model_type>.py`` gives for the configuration's architecture),
+and wraps three of its methods on the instances it built: the embedder's
+``encode_texts`` and the index's ``search_texts`` / ``search_texts_tiers``.
+The wrappers time each call on the host clock, count index dispatches, mark
+the spans for the profiler in a traced run, and keep the query vectors of the
+calls the check compares.
+
+It is one of the two modules of the benchmark that import the program
+(``ragfin_tpu_torch``); the other is ``lib/spans.py``, which reads the
+program's own spans for the per-layer readers.
 """
 
 from __future__ import annotations
@@ -17,6 +22,8 @@ import time
 
 import numpy as np
 import torch
+
+from . import spec
 
 
 class CallStats:
@@ -101,32 +108,6 @@ class Probes:
         return method
 
 
-def _minilm_state(flat: dict) -> dict:
-    """Benchmark weights (Flax paths, kernels [in, out]) -> the port's
-    ``MiniLMEncoder`` parameter names (``Linear.weight`` [out, in])."""
-    sd = {
-        "word_embeddings.weight": flat["params/word_embeddings/embedding"],
-        "position_embeddings.weight": flat["params/position_embeddings/embedding"],
-        "token_type_embeddings.weight": flat["params/token_type_embeddings/embedding"],
-        "embeddings_norm.weight": flat["params/embeddings_norm/scale"],
-        "embeddings_norm.bias": flat["params/embeddings_norm/bias"],
-    }
-    linears = {"attention/query": "attention.query", "attention/key": "attention.key",
-               "attention/value": "attention.value", "attention/output": "attention.output",
-               "intermediate": "intermediate", "ffn_output": "ffn_output"}
-    layer = 0
-    while f"params/layer_{layer}/ffn_norm/scale" in flat:
-        pre = f"params/layer_{layer}"
-        for path, name in linears.items():
-            sd[f"layers.{layer}.{name}.weight"] = flat[f"{pre}/{path}/kernel"].t()
-            sd[f"layers.{layer}.{name}.bias"] = flat[f"{pre}/{path}/bias"]
-        for norm in ("attention_norm", "ffn_norm"):
-            sd[f"layers.{layer}.{norm}.weight"] = flat[f"{pre}/{norm}/scale"]
-            sd[f"layers.{layer}.{norm}.bias"] = flat[f"{pre}/{norm}/bias"]
-        layer += 1
-    return sd
-
-
 class System:
     """The deployment of one configuration: embedder, index, entry point."""
 
@@ -144,7 +125,7 @@ class System:
         self.embedder = make_embedder(backend, checkpoint=checkpoint, device=device,
                                       **dep.get("embedder", {}))
         if weights is not None:
-            self.embedder.model.load_state_dict(_minilm_state(weights))
+            self.embedder.model.load_state_dict(spec.states(config).program_state(weights))
         self.index = DeviceVectorIndex(vectors, records, dtype=self.settings.index_dtype,
                                        device=device, **dep.get("index", {}))
         self.index.embedder = self.embedder

@@ -38,10 +38,13 @@ def test_no_source_imports_jax_or_the_jax_package():
 
 
 def test_reference_imports_nothing_of_the_program():
+    checked = set()
     for path in _sources():
         rel = os.path.relpath(path, spec.BENCH_DIR)
-        if rel.startswith("reference") or rel in ("lib/judge.py", "lib/corpus.py", "lib/weights.py"):
+        if rel.startswith(("reference", "lib/states")) or rel in ("lib/judge.py", "lib/corpus.py", "lib/weights.py"):
             assert "ragfin_tpu_torch" not in set(_top_level_imports(path)), rel
+            checked.add(rel)
+    assert {"reference/models/bert.py", "lib/states/bert.py"} <= checked
 
 
 def _in_subprocess(code):
@@ -71,6 +74,10 @@ def test_the_comparison_loads_nothing_of_the_program():
     code = (
         "import sys\n"
         "import benchmark.lib.judge, benchmark.reference.search, benchmark.reference.filters\n"
+        "from benchmark.lib import spec\n"
+        "for w in spec.benchmark()['workloads']:\n"
+        "    config = spec.cell(w['name'])['config']\n"
+        "    spec.arch(config), spec.states(config)\n"
         "print('ragfin_tpu_torch' in sys.modules)\n"
     )
     assert _in_subprocess(code) == "False"

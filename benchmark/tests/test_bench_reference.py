@@ -6,7 +6,7 @@ import torch
 
 from benchmark import run as bench_run
 from benchmark.lib import judge, spec, weights
-from benchmark.reference import encoder, search
+from benchmark.reference import search
 from benchmark.reference.tokenizer import Tokenizer
 
 from _bench_cells import RAW, SCOPED, small_cell
@@ -31,15 +31,15 @@ def test_tokenizer_matches_the_program(name):
         assert ours.encode(t) == theirs.encode(t)
 
 
-def test_encoder_matches_the_program_in_float32():
+@pytest.mark.parametrize("pooling", ["mean", "cls"])
+def test_encoder_matches_the_program_in_float32(pooling):
     from ragfin_tpu_torch.models.minilm import MiniLMConfig, MiniLMEncoder
-    from benchmark.lib.system import _minilm_state
 
     config = spec.cell(RAW)["config"]
-    arch = dict(config, num_hidden_layers=2)
+    arch = dict(config, num_hidden_layers=2, pooling=pooling)
     w = weights.seeded(arch, 5, "cpu")
-    model = MiniLMEncoder(MiniLMConfig(num_layers=2, dtype=torch.float32))
-    model.load_state_dict(_minilm_state(w))
+    model = MiniLMEncoder(MiniLMConfig(num_layers=2, pooling=pooling, dtype=torch.float32))
+    model.load_state_dict(spec.states(arch).program_state(w))
     tok = Tokenizer(max_len=256)
     ids = [tok.encode(t) for t in TEXTS]
     s = max(map(len, ids))
@@ -47,7 +47,7 @@ def test_encoder_matches_the_program_in_float32():
     mask = torch.tensor([[1] * len(i) + [0] * (s - len(i)) for i in ids])
     with torch.no_grad():
         theirs = model(pad, mask)
-    ours = encoder.encode(w, arch, ids, "cpu")
+    ours = spec.arch(arch).encode(w, arch, ids, "cpu")
     assert torch.allclose(ours, theirs, atol=2e-6)
 
 

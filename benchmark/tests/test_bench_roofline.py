@@ -29,12 +29,19 @@ def test_topk_least_time_int8_counts_the_scales():
     assert roofline.topk_least_s(q, n, 384, 10, "int8") == pytest.approx(2 * q * n * 384 / 1979e12)
 
 
+def _encoder_flops(tokens, layers, hidden, ffn):
+    """The BERT reference's ``matmul_flops`` by its sizes."""
+    config = {"model_type": "bert", "num_hidden_layers": layers, "hidden_size": hidden,
+              "intermediate_size": ffn}
+    return spec.arch(config).matmul_flops(tokens, config)
+
+
 def test_encoder_flops_by_hand():
     # 4 layers, hidden 384, FFN 1536, one sequence of 10 real tokens:
     # per token 2 (4 * 384^2 + 2 * 384 * 1536) = 3,538,944; attention
     # 2 * 2 * 10 * 10 * 384 = 153,600 per layer.
-    assert roofline.encoder_flops([10], 4, 384, 1536) == 4 * (10 * 3_538_944 + 153_600)
-    assert roofline.encoder_flops([10, 3], 1, 384, 1536) == (
+    assert _encoder_flops([10], 4, 384, 1536) == 4 * (10 * 3_538_944 + 153_600)
+    assert _encoder_flops([10, 3], 1, 384, 1536) == (
         13 * 3_538_944 + 4 * (100 + 9) * 384)
 
 
@@ -50,7 +57,7 @@ def _run(calls, seconds=10.0, trace_=None, rows=1_000_000, dtype="float32"):
     run = types.SimpleNamespace(
         calls=calls, window_start=0.0, window_end=seconds, seconds=seconds, setup_s=12.5,
         peak_bytes=3 * 2**30, trace=trace_, layout=layout, top_k=10, dtype=dtype,
-        config={"num_hidden_layers": 4, "hidden_size": 384, "intermediate_size": 1536},
+        config={"model_type": "bert", "num_hidden_layers": 4, "hidden_size": 384, "intermediate_size": 1536},
         tokens=lambda t: len(t.split()) + 2)
     run.completed = [c for c in calls if c.end <= run.window_end and c.error is None]
     return run
@@ -77,7 +84,7 @@ def test_per_layer_readers():
     assert spec.reader("device_idle")(run) == pytest.approx(20.0)
     least = 4 * roofline.topk_least_s(64, 1_000_000, 384, 10, "float32")
     assert spec.reader("topk_roofline")(run) == pytest.approx(100 * least / 0.5)
-    flops = 4 * (roofline.topk_ops(64, 1_000_000, 384) + roofline.encoder_flops([5] * 8, 4, 384, 1536))
+    flops = 4 * (roofline.topk_ops(64, 1_000_000, 384) + _encoder_flops([5] * 8, 4, 384, 1536))
     assert spec.reader("step_mfu")(run) == pytest.approx(100 * flops / (5.0 * 989e12))
 
 
@@ -106,6 +113,12 @@ def test_raw_readers_read_as_their_base(base):
     calls = [_call(i, i + 0.5, encoded=[["a b c"] * 8], encode_s=0.01, index_s=0.02) for i in range(6)]
     run = _run(calls, seconds=4.0, trace_={"window_s": 4.0, "busy_s": 1.0, "index_device_s": 0.25})
     assert spec.reader(base + ".raw")(run) == spec.reader(base)(run)
+
+
+def test_scoped_rate_reads_as_qps():
+    calls = [_call(i, i + 0.5) for i in range(6)] + [_call(6.0, 7.5)]
+    run = _run(calls, seconds=7.0)
+    assert spec.reader("qps.scoped")(run) == spec.reader("qps")(run)
 
 
 def test_every_cell_reports_what_its_layer_metrics_move():
